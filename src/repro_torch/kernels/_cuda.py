@@ -1,0 +1,173 @@
+"""Build, load and launch the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
+use, by its own ``nvcc`` process (all of them started together), into
+``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root.  The
+hash covers the source and the compiler flags, so an edited kernel is
+rebuilt and an unchanged one is reused.  The libraries are loaded with
+``ctypes``: pointers and the stream go in as ``c_void_p``, sizes as
+``c_int``, and every entry returns ``cudaGetLastError()`` after its launch.
+
+Nothing here runs when the module is imported: a machine without ``nvcc``
+or a card imports it, and only a launch on a CUDA tensor needs them.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from collections import Counter
+from pathlib import Path
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
+             / "repro_torch_kernels")
+KERNELS = ("lstm_cell", "gru_cell")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# argument layout of each C entry after the data pointers: sizes, the stream
+_N_PTRS = {"lstm_cell": 8, "gru_cell": 6}
+_N_INTS = 3                                  # B, I, H
+
+# launches per kernel; each wrapper adds one right after its launch
+LAUNCHES: Counter = Counter()
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``."""
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _bind(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    args = [ctypes.c_void_p] * _N_PTRS[name] + [ctypes.c_int] * _N_INTS \
+        + [ctypes.c_void_p]
+    for suffix in ("f32", "bf16"):
+        fn = getattr(lib, f"repro_{name}_{suffix}")
+        fn.argtypes, fn.restype = args, ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build(names: Sequence[str] = KERNELS) -> Dict[str, ctypes.CDLL]:
+    """Compile (where the cached library is missing) and load ``names``.
+
+    One ``nvcc`` per source, all started before any is awaited.  A failed
+    build raises with nvcc's stderr.  Thread-safe; later calls return the
+    loaded libraries at once.
+    """
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        if not todo:
+            return {n: _libs[n] for n in names}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = []
+        for name in todo:
+            path = _library_path(name)
+            if path.exists():
+                continue
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            jobs.append((name, path, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for name, path, tmp, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on csrc/{name}.cu "
+                              f"(exit {proc.returncode}):\n{err}")
+            else:
+                os.replace(tmp, path)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in todo:
+            _libs[name] = _bind(name, _library_path(name))
+        return {n: _libs[n] for n in names}
+
+
+# shared memory of one block: 4 rows of [x | h] in fp32, within the 48 KB a
+# block gets without opting in
+MAX_IN_PLUS_HIDDEN = 48 * 1024 // (4 * 4)
+
+
+def cell_dims(name: str, x: torch.Tensor,
+              h: torch.Tensor) -> Tuple[int, int, int]:
+    """(B, I, H) of a cell call, raising outside the kernels' range."""
+    if x.dim() != 2 or h.dim() != 2:
+        raise ValueError(f"{name}: x and h must be 2-D, got "
+                         f"{tuple(x.shape)} and {tuple(h.shape)}")
+    (B, I), H = x.shape, h.shape[-1]
+    if B < 1 or H < 1 or I + H > MAX_IN_PLUS_HIDDEN:
+        raise ValueError(f"{name}: B={B}, I={I}, H={H} outside the kernel's "
+                         f"range (B, H >= 1, I + H <= {MAX_IN_PLUS_HIDDEN})")
+    return B, I, H
+
+
+def check_inputs(name: str, tensors: Sequence[torch.Tensor],
+                 shapes: Sequence[Tuple[int, ...]]) -> None:
+    """Raise unless every tensor lies on one CUDA device, has one dtype
+    (float32 or bfloat16), has its expected shape and is contiguous, and
+    unless autograd would have to record the launch (the kernels are
+    forward only)."""
+    dev, dt = tensors[0].device, tensors[0].dtype
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {dt} is not float32 or bfloat16")
+    for i, (t, shape) in enumerate(zip(tensors, shapes)):
+        if t.device != dev:
+            raise ValueError(f"{name}: argument {i} on {t.device}, not {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: argument {i} is {t.dtype}, not {dt}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: argument {i} has shape "
+                             f"{tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: argument {i} is not contiguous")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(
+                f"{name}: the CUDA kernel is forward only; run under "
+                "torch.no_grad() or torch.inference_mode()")
+
+
+def launch(name: str, tensors: Sequence[torch.Tensor],
+           dims: Tuple[int, int, int]) -> None:
+    """Launch ``name`` on the current stream of the tensors' device with
+    data pointers ``tensors`` (inputs, then outputs) and sizes ``dims``;
+    raise if the launch is refused.  The tensors' device is current only
+    for the launch, so the caller's current device is left as it was."""
+    lib = _libs.get(name) or build((name,))[name]
+    dev = tensors[0].device
+    suffix = "f32" if tensors[0].dtype == torch.float32 else "bf16"
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, f"repro_{name}_{suffix}")(
+            *[t.data_ptr() for t in tensors], *dims, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err} ({lib.repro_error_string(err).decode()})")

@@ -1,0 +1,41 @@
+"""Drop-in recurrent steps that route model code through the CUDA kernels.
+
+``lstm_cell_fused`` / ``gru_cell_fused`` take the forecaster's per-layer
+param dict ``{"wx", "wh", "b"}``.
+On the CPU they compute the plain versions; on CUDA tensors they launch the
+hand-written kernels (built at first use, see :mod:`._cuda`) or raise, with
+no fallback.  The kernels are forward only: on a CUDA tensor that autograd
+would have to record, they raise.
+
+``launch_counts`` / ``reset_launch_counts`` read and zero the per-kernel
+launch counters, so a run can show that its main path went through the
+kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels import _cuda
+from repro_torch.kernels.gru_cell import gru_cell
+from repro_torch.kernels.lstm_cell import lstm_cell
+
+KERNELS = _cuda.KERNELS
+build = _cuda.build
+
+
+def lstm_cell_fused(x_t, h, c, p):
+    """(x_t, h, c, layer params) -> (h', c'); gates [i|f|g|o] in wx/wh."""
+    return lstm_cell(x_t, h, c, p["wx"], p["wh"], p["b"])
+
+
+def gru_cell_fused(x_t, h, p):
+    """(x_t, h, layer params) -> h'; gates [z|r|h~] in wx/wh."""
+    return gru_cell(x_t, h, p["wx"], p["wh"], p["b"])
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: _cuda.LAUNCHES[name] for name in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    _cuda.LAUNCHES.clear()

@@ -1,0 +1,151 @@
+"""The paper's demand forecasters (§3.2): stacked LSTM / GRU + linear head.
+
+Univariate input: a look-back window of L normalized kWh readings, shape
+(B, L, input_dim); output: (B, horizon), a multi-step direct forecast (the
+paper's 8-step look-back / 4-step, 1 h, horizon).
+
+Parameters are a plain dict tree with the JAX package's exact keys and
+layouts, ``{"layers": [{"wx", "wh", "b"}], "head": {"w", "b"}}``, with
+``wx (I, G*H)``, ``wh (H, G*H)``, ``b (G*H,)``, gates ``[i|f|g|o]`` (LSTM)
+or ``[z|r|h~]`` (GRU) and no hidden bias.  They stay arguments, so the
+serving registry can swap a whole tree at once.  ``cell_impl="kernel"``
+steps through the fused CUDA cells (``kernels/lstm_cell.py``,
+``kernels/gru_cell.py``), ``cell_impl="torch"`` through their plain versions
+(``kernels/ref.py``).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ForecasterConfig
+from repro_torch.kernels import ref
+from repro_torch.kernels.gru_cell import gru_cell
+from repro_torch.kernels.lstm_cell import lstm_cell
+from repro_torch.models.layers import dense_init
+
+# cell_impl -> (LSTM step, GRU step): the fused CUDA cells, or their plain
+# versions
+CELL_IMPLS = {"kernel": (lstm_cell, gru_cell),
+              "torch": (ref.lstm_cell_ref, ref.gru_cell_ref)}
+
+
+# ------------------------------------------------------------------ init
+def init_forecaster(generator: torch.Generator, cfg: ForecasterConfig,
+                    dtype=torch.float32) -> Dict:
+    """Random CPU weights from ``generator`` (same scale rule as the JAX
+    package; the draws differ, since torch cannot replay ``jax.random``)."""
+    gates = 4 if cfg.cell == "lstm" else 3
+    layers = []
+    for l in range(cfg.n_layers):
+        inp = cfg.input_dim if l == 0 else cfg.hidden_dim
+        layers.append({
+            "wx": dense_init(generator, inp, gates * cfg.hidden_dim,
+                             dtype=dtype),
+            "wh": dense_init(generator, cfg.hidden_dim,
+                             gates * cfg.hidden_dim,
+                             scale=cfg.hidden_dim ** -0.5, dtype=dtype),
+            "b": torch.zeros((gates * cfg.hidden_dim,), dtype=dtype),
+        })
+    head = {"w": dense_init(generator, cfg.hidden_dim, cfg.horizon,
+                            dtype=dtype),
+            "b": torch.zeros((cfg.horizon,), dtype=dtype)}
+    return {"layers": layers, "head": head}
+
+
+def param_template(cfg: ForecasterConfig, dtype=torch.float32) -> Dict:
+    """Zero-valued tree with :func:`init_forecaster`'s exact structure: the
+    shape oracle for structure-driven loads (``checkpoint.unflatten_like``
+    in the serving registry)."""
+    gates = 4 if cfg.cell == "lstm" else 3
+    G, H = gates * cfg.hidden_dim, cfg.hidden_dim
+    layers = []
+    for l in range(cfg.n_layers):
+        inp = cfg.input_dim if l == 0 else H
+        layers.append({
+            "wx": torch.zeros((inp, G), dtype=dtype),
+            "wh": torch.zeros((H, G), dtype=dtype),
+            "b": torch.zeros((G,), dtype=dtype),
+        })
+    head = {"w": torch.zeros((H, cfg.horizon), dtype=dtype),
+            "b": torch.zeros((cfg.horizon,), dtype=dtype)}
+    return {"layers": layers, "head": head}
+
+
+# --------------------------------------------------- numpy <-> port trees
+def params_from_numpy(tree, device="cpu") -> Dict:
+    """A forecaster tree of numpy arrays (e.g. ``jax.tree.map(np.asarray,
+    params)``) -> the same tree of tensors on ``device``, layouts unchanged.
+    bfloat16 leaves keep their dtype."""
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":            # numpy has no native bf16
+            t = torch.from_numpy(a.view(np.int16).copy())
+            return t.view(torch.bfloat16).to(device)
+        return torch.from_numpy(np.array(a)).to(device)
+    return {"layers": [{k: leaf(p[k]) for k in ("wx", "wh", "b")}
+                       for p in tree["layers"]],
+            "head": {k: leaf(tree["head"][k]) for k in ("w", "b")}}
+
+
+def params_to_numpy(params) -> Dict:
+    """Inverse of :func:`params_from_numpy`: host numpy arrays, float32 for
+    float32 leaves; bfloat16 leaves are widened to float32 (exactly)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return {"layers": [{k: leaf(p[k]) for k in ("wx", "wh", "b")}
+                       for p in params["layers"]],
+            "head": {k: leaf(params["head"][k]) for k in ("w", "b")}}
+
+
+# ------------------------------------------------------------------ forward
+def forecast(params, x, cfg: ForecasterConfig, cell_impl: str = "kernel"):
+    """x: (B, L, input_dim) -> (B, horizon)."""
+    if cell_impl not in CELL_IMPLS:
+        raise ValueError(
+            f"cell_impl={cell_impl!r}; pick from {tuple(CELL_IMPLS)}")
+    lstm_step, gru_step = CELL_IMPLS[cell_impl]
+    B, H = x.shape[0], cfg.hidden_dim
+    # time-major and contiguous, so every step's x_t is a contiguous (B, I)
+    h_seq = x.transpose(0, 1).contiguous()
+    n_layers = len(params["layers"])
+    for l, p in enumerate(params["layers"]):
+        h = torch.zeros((B, H), dtype=x.dtype, device=x.device)
+        c = torch.zeros_like(h)
+        hs = []
+        for t in range(h_seq.shape[0]):
+            if cfg.cell == "lstm":
+                h, c = lstm_step(h_seq[t], h, c, p["wx"], p["wh"], p["b"])
+            else:
+                h = gru_step(h_seq[t], h, p["wx"], p["wh"], p["b"])
+            hs.append(h)
+        if l + 1 < n_layers:
+            h_seq = torch.stack(hs)                     # (L, B, H)
+    return torch.matmul(h, params["head"]["w"]) + params["head"]["b"]
+
+
+class Forecaster(nn.Module):
+    """The forecaster as an ``nn.Module``: its parameters registered under
+    the tree's keys, :meth:`params` the plain tree view that
+    :func:`forecast` takes."""
+
+    def __init__(self, cfg: ForecasterConfig, params: Dict, *,
+                 cell_impl: str = "kernel"):
+        super().__init__()
+        self.cfg, self.cell_impl = cfg, cell_impl
+        self.layers = nn.ModuleList(
+            nn.ParameterDict({k: nn.Parameter(v) for k, v in p.items()})
+            for p in params["layers"])
+        self.head = nn.ParameterDict(
+            {k: nn.Parameter(v) for k, v in params["head"].items()})
+
+    def params(self) -> Dict:
+        return {"layers": [dict(p) for p in self.layers],
+                "head": dict(self.head)}
+
+    def forward(self, x):
+        return forecast(self.params(), x, self.cfg, self.cell_impl)

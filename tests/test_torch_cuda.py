@@ -1,0 +1,94 @@
+"""The CUDA kernels on the card: each against its plain version, the launch
+counters, and the wrappers' refusals.  Every test needs a CUDA device and
+skips without one.  This file imports no JAX, so it runs on a machine with
+the card and no JAX:
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.base import ForecasterConfig  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import forecaster  # noqa: E402
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(gen, dev, dt, *shape):
+    return (torch.randn(*shape, generator=gen) * 0.3).to(dev, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("B,I,H", [(8, 1, 16), (37, 1, 50), (37, 50, 50),
+                                   (256, 1, 64), (32, 16, 256), (1, 3, 1)])
+def test_kernels_match_plain(cuda, B, I, H, dt):
+    g = torch.Generator().manual_seed(B * 1000 + I * 10 + H)
+    r = lambda *s: _rand(g, cuda, dt, *s)  # noqa: E731
+    ops.reset_launch_counts()
+    x, h, c = r(B, I), r(B, H), r(B, H)
+    lp = {"wx": r(I, 4 * H), "wh": r(H, 4 * H), "b": r(4 * H)}
+    gp = {"wx": r(I, 3 * H), "wh": r(H, 3 * H), "b": r(3 * H)}
+    h1, c1 = ops.lstm_cell_fused(x, h, c, lp)
+    h2, c2 = ref.lstm_cell_ref(x, h, c, lp["wx"], lp["wh"], lp["b"])
+    g1 = ops.gru_cell_fused(x, h, gp)
+    g2 = ref.gru_cell_ref(x, h, gp["wx"], gp["wh"], gp["b"])
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"lstm_cell": 1, "gru_cell": 1}
+    for a, b in ((h1, h2), (c1, c2), (g1, g2)):
+        assert a.dtype == dt and a.device == x.device
+        torch.testing.assert_close(a.float(), b.float(), rtol=TOL[dt],
+                                   atol=TOL[dt])
+
+
+def test_wrappers_refuse_bad_inputs(cuda):
+    g = torch.Generator().manual_seed(0)
+    B, I, H = 8, 2, 16
+    r = lambda *s: _rand(g, cuda, torch.float32, *s)  # noqa: E731
+    x, h, c = r(B, I), r(B, H), r(B, H)
+    wx, wh, b = r(I, 4 * H), r(H, 4 * H), r(4 * H)
+    ops.reset_launch_counts()
+    cases = [
+        (TypeError, (x.bfloat16(), h, c, wx, wh, b)),        # mixed dtype
+        (TypeError, tuple(t.half() for t in (x, h, c, wx, wh, b))),
+        (ValueError, (x, h, c, wx, wh[:, :-1].contiguous(), b)),
+        (ValueError, (x, h, c, wx.t().contiguous().t(), wh, b)),
+        (ValueError, (x, h.cpu(), c, wx, wh, b)),             # device mix
+        (RuntimeError, (x, h, c, wx.clone().requires_grad_(), wh, b)),
+    ]
+    for exc, args in cases:
+        with pytest.raises(exc):
+            ops.lstm_cell_fused(args[0], args[1], args[2],
+                                {"wx": args[3], "wh": args[4], "b": args[5]})
+    assert ops.launch_counts()["lstm_cell"] == 0
+    with torch.no_grad():                                     # forward only
+        ops.lstm_cell_fused(x, h, c, {"wx": wx, "wh": wh, "b": b})
+    assert ops.launch_counts()["lstm_cell"] == 1
+
+
+@pytest.mark.parametrize("cell,n_layers", [("lstm", 1), ("gru", 2)])
+def test_forecast_on_card_matches_cpu(cuda, cell, n_layers):
+    cfg = ForecasterConfig(cell=cell, n_layers=n_layers)
+    params = forecaster.init_forecaster(torch.Generator().manual_seed(3), cfg)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(100, cfg.lookback, 1)).astype(np.float32))
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        y_card = forecaster.forecast(
+            {"layers": [{k: v.to(cuda) for k, v in p.items()}
+                        for p in params["layers"]],
+             "head": {k: v.to(cuda) for k, v in params["head"].items()}},
+            x.to(cuda), cfg).cpu()
+        y_cpu = forecaster.forecast(params, x, cfg, "torch")
+    assert ops.launch_counts()[f"{cell}_cell"] == cfg.lookback * n_layers
+    torch.testing.assert_close(y_card, y_cpu, rtol=1e-4, atol=1e-4)
