@@ -6,7 +6,10 @@ holds each against its plain PyTorch version on the card, drives the
 forecast-serving path end to end (registry -> router -> bucketed engine ->
 fused cells) at the paper forecaster's full width for the LSTM and a
 2-layer GRU, checks the results against the same engine on the CPU, times
-the kernels at the serving shape, and ends with one JSON status line.
+the kernels at their paths' shapes, drives the dense-LM prefill and decode
+steps at qwen3-14b's full width (8 of its 40 layers) through the flash
+attention kernel, holds them against the plain attention route, and ends
+with one JSON status line.
 
     python3 chip_smoke.py [--seed N]
 
@@ -28,15 +31,29 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and
-# dense fp32 outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth,
+# dense fp32 outside the tensor cores, dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_TENSOR_FLOPS_PER_S = 989e12
 
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # tests/test_kernels.py
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # tests/test_kernels.py: cells
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # and flash attention
 REQUESTS_PER_CONSUMER = 8
 CONSUMERS = 256
 HISTORY_DAYS = 14
+
+# the LM slice: qwen3-14b at full width, n_layers cut 40 -> 8; prefill_32k's
+# batch 32 x 32768 cut to 2 x 4096; greedy decode steps after it
+LM_ARCH, LM_LAYERS, LM_BATCH, LM_PROMPT, LM_NEW = "qwen3-14b", 8, 2, 4096, 32
+# (B, S, Hq, Hkv, hd, window): the sweep of tests/test_kernels.py, an
+# unaligned S, then the LM slice's prefill shape, full and windowed
+FLASH_SHAPES = [(2, 128, 4, 4, 32, 0), (2, 256, 8, 2, 64, 0),
+                (1, 256, 4, 1, 64, 0), (1, 512, 2, 2, 32, 128),
+                (3, 384, 6, 2, 16, 0), (2, 200, 4, 2, 64, 0),
+                (1, 200, 4, 2, 128, 64), (2, 4096, 40, 8, 128, 0),
+                (2, 4096, 40, 8, 128, 1024)]
+FLASH_SLICE = (2, 4096, 40, 8, 128)
 
 
 def require(cond, msg):
@@ -53,6 +70,14 @@ def _max_err(a, b, tol):
     a, b = a.float(), b.float()
     err = (a - b).abs()
     return float(err.max()), bool((err <= tol + tol * b.abs()).all())
+
+
+def _row_rel_err(a, b):
+    """Max over rows (the last axis) of ||a-b|| / ||b||: an error scaled by
+    each row's own magnitude, for outputs far below 1 in size."""
+    a, b = a.float(), b.float()
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)
+                  ).max())
 
 
 # --------------------------------------------------------------- phase 2
@@ -108,6 +133,51 @@ def check_kernels(seed):
         emit({"phase": "kernel_vs_plain", "dtype": dname, "tol": TOL[dname],
               "cases": rows})
     return serving_err
+
+
+# -------------------------------------------------------------- phase 2b
+def check_flash(seed):
+    """Flash kernel vs its plain version on the same CUDA tensors, fp32 and
+    bf16, every FLASH_SHAPES case: each element within tol + tol·|plain|,
+    and each output row within tol of the plain row relative to its norm
+    (at S=4096 most rows average thousands of keys and are far below 1, so
+    the element bound alone would hardly check them).  Returns the max abs
+    error at the LM slice's shape in bf16, the path's dtype."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator("cuda").manual_seed(seed + 2)
+    slice_err = None
+    for dname in ("float32", "bfloat16"):
+        dt, tol = getattr(torch, dname), FLASH_TOL[dname]
+        rows = []
+        for B, S, Hq, Hkv, hd, win in FLASH_SHAPES:
+            q, k, v = (torch.randn(B, S, H, hd, generator=gen, device="cuda"
+                                   ).to(dt) for H in (Hq, Hkv, Hkv))
+            out = flash_attention(q, k, v, window=win)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, window=win)
+            torch.cuda.synchronize()
+            err, ok = _max_err(out, want, tol)
+            rel = _row_rel_err(out, want)
+            ok = ok and rel <= tol and out.dtype == dt \
+                and out.shape == q.shape and bool(torch.isfinite(out).all())
+            rows.append({"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
+                         "window": win, "max_abs_err": err,
+                         "max_row_rel_err": rel, "ok": ok})
+            require(ok, f"flash_attention {dname} B={B} S={S} Hq={Hq} "
+                    f"Hkv={Hkv} hd={hd} window={win}: kernel disagrees with "
+                    f"its plain version (max abs err {err:.3g}, max row "
+                    f"relative err {rel:.3g}, tol {tol})")
+            if dname == "bfloat16" and (B, S, Hq, Hkv, hd, win) == \
+                    FLASH_SLICE + (0,):
+                slice_err = err
+            del q, k, v, out, want
+        emit({"phase": "flash_vs_plain", "dtype": dname, "tol": tol,
+              "cases": rows})
+    torch.cuda.empty_cache()
+    return slice_err
 
 
 # --------------------------------------------------------------- phase 3
@@ -212,8 +282,9 @@ def time_ms(fn, iters=300, warmup=50, chunk=20):
     call, with the host kept ahead of the card (a ``torch.cuda._sleep``
     spin, sized from the measured host cost, holds the stream while a chunk
     of calls is enqueued), so each pair times the call's kernels and not
-    the host's dispatch.  Host: wall time per call of back-to-back calls ending
-    in a synchronize, which is what a caller waits when the card is idle.
+    the host's dispatch.  Host: wall time per call of
+    back-to-back calls ending in a synchronize, which is what a caller
+    waits when the card is idle.
     """
     import torch
     for _ in range(warmup):
@@ -247,11 +318,20 @@ def time_ms(fn, iters=300, warmup=50, chunk=20):
     return statistics.median(times), host_ms
 
 
-def _timed(kernel, plain, library, **counts):
+def _timed(kernel, plain, library, iters=300, warmup=50, **counts):
     out = dict(counts)
     for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        out[f"{key}ms"], out[f"{key}host_ms"] = time_ms(fn)
+        out[f"{key}ms"], out[f"{key}host_ms"] = time_ms(fn, iters, warmup)
     return out
+
+
+def _bound(t, peak_flops):
+    """Add the roofline bound (larger of bytes and operations time)."""
+    bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = t["flops"] / peak_flops * 1e3
+    t["bound_ms"] = max(bytes_ms, ops_ms)
+    t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return t
 
 
 def time_kernels(seed):
@@ -303,14 +383,213 @@ def time_kernels(seed):
         bytes=4 * (B * I + B * H + I * 3 * H + H * 3 * H + 3 * H + B * H),
         flops=2 * B * (I + H) * 3 * H)
     for t in out.values():
-        bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = t["flops"] / FP32_FLOPS_PER_S * 1e3
-        t["bound_ms"] = max(bytes_ms, ops_ms)
-        t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        _bound(t, FP32_FLOPS_PER_S)
     emit({"phase": "timing", "shape": {"B": B, "I": I, "H": H,
                                        "dtype": "float32"},
           "median_of": 300, **out})
     return out
+
+
+# -------------------------------------------------------------- phase 4b
+def time_flash(seed):
+    """Flash kernel, its plain version and scaled_dot_product_attention at
+    the LM slice's prefill shape (B=2, S=4096, Hq=40, Hkv=8, hd=128, bf16,
+    causal), beside the bound: the causal FLOPs of these inputs on the bf16
+    tensor cores, or q, k, v read and o written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    B, S, Hq, Hkv, hd = FLASH_SLICE
+    gen = torch.Generator("cuda").manual_seed(seed + 3)
+    q, k, v = (torch.randn(B, S, H, hd, generator=gen, device="cuda"
+                           ).to(torch.bfloat16) for H in (Hq, Hkv, Hkv))
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    want = ref.flash_attention_ref(q, k, v)
+    require(_max_err(library().transpose(1, 2), want,
+                     FLASH_TOL["bfloat16"])[1],
+            "scaled_dot_product_attention yardstick does not compute the "
+            "repo's attention")
+    del want
+    torch.cuda.empty_cache()
+    out = _timed(lambda: flash_attention(q, k, v),
+                 lambda: ref.flash_attention_ref(q, k, v), library,
+                 iters=20, warmup=3,
+                 bytes=2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd),
+                 flops=4 * B * Hq * hd * S * (S + 1) // 2)
+    _bound(out, BF16_TENSOR_FLOPS_PER_S)
+    emit({"phase": "flash_timing",
+          "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
+                    "dtype": "bfloat16", "causal": True},
+          "median_of": 20, "flash_attention": out})
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------- phase 5
+def lm_slice(seed):
+    """The dense-LM inference path at qwen3-14b's full width (LM_LAYERS of
+    its layers, bf16, weights seeded on the card): prefill LM_BATCH x
+    LM_PROMPT random tokens, then LM_NEW greedy decode steps, through
+    ``launch/lm_steps.py``.  The kernel route is held against the plain
+    attention route on the same tokens, step by step, at the bf16 tolerance
+    scaled by the largest |logit|.  Returns the flash launches of one
+    prefill."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lm_steps
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    gen = torch.Generator("cuda").manual_seed(seed + 4)
+    t0 = time.perf_counter()
+    params = tf.init_model(gen, cfg, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    # ModelConfig.num_params counts the matrices, not the norm scales
+    hd = cfg.resolved_head_dim
+    norms = cfg.n_layers * (2 * cfg.d_model + 2 * hd * cfg.qk_norm) \
+        + cfg.d_model
+    require(n_params == cfg.num_params() + norms,
+            f"{n_params} params, config says {cfg.num_params()} + {norms} "
+            "norm scales")
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        kern = lm_steps.generate(params, prompt, cfg, LM_NEW,
+                                 attn_impl="kernel")
+        counts = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        require(counts == {"lstm_cell": 0, "gru_cell": 0,
+                           "flash_attention": cfg.n_layers},
+                f"launch counts {counts} in one prefill + {LM_NEW} decode "
+                f"steps, expected flash_attention = {cfg.n_layers} layers")
+        plain = lm_steps.generate(params, prompt, cfg, LM_NEW,
+                                  attn_impl="torch", feed=kern["tokens"])
+        worst = []
+        for a, b in zip([kern["prefill_logits"]] + kern["logits"],
+                        [plain["prefill_logits"]] + plain["logits"]):
+            require(a.shape == (LM_BATCH, 1, cfg.vocab_size) and
+                    bool(torch.isfinite(a).all()),
+                    f"logits of shape {tuple(a.shape)} or not finite")
+            bound = FLASH_TOL["bfloat16"] * max(float(b.float().abs().max())
+                                                + 1e-6, 1.0)
+            err = float((a.float() - b.float()).abs().max())
+            worst.append(err / bound)
+            require(err < bound, f"kernel route vs plain route: max abs "
+                    f"logit error {err:.4g} >= {bound:.4g}")
+        # warm timings: the same path again, then the flash share of a
+        # prefill from CUDA events around each flash call inside it
+        warm = lm_steps.generate(params, prompt, cfg, LM_NEW,
+                                 attn_impl="kernel", feed=kern["tokens"])
+        spans, real = [], ops.flash_attention
+
+        def timed_flash(*a, **kw):
+            s, e = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            s.record()
+            out = real(*a, **kw)
+            e.record()
+            spans.append((s, e))
+            return out
+
+        shape = InputShape("lm", LM_PROMPT + LM_NEW, LM_BATCH, "prefill")
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        ops.flash_attention = timed_flash
+        try:
+            start.record()
+            lm_steps.prefill_step(params, prompt, cfg,
+                                  capacity=lm_steps.cache_capacity(cfg,
+                                                                   shape))
+            end.record()
+        finally:
+            ops.flash_attention = real
+        torch.cuda.synchronize()
+        decode_profile = profile_decode(params, prompt, cfg, kern["tokens"])
+    prefill_dev_ms = start.elapsed_time(end)
+    flash_ms = sum(s.elapsed_time(e) for s, e in spans)
+    emit({"phase": "lm_slice", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "params": n_params, "dtype": "bfloat16",
+          "batch": LM_BATCH, "prompt_len": LM_PROMPT, "decode_steps": LM_NEW,
+          "launches": counts, "kernel_vs_plain_worst_over_tol": max(worst),
+          "init_s": init_s, "peak_memory_gib": peak_gb,
+          "prefill_wall_ms_first": kern["prefill_s"] * 1e3,
+          "prefill_wall_ms": warm["prefill_s"] * 1e3,
+          "prefill_wall_ms_plain_route": plain["prefill_s"] * 1e3,
+          "prefill_device_ms": prefill_dev_ms,
+          "flash_ms_in_prefill": flash_ms,
+          "flash_share_of_prefill": flash_ms / prefill_dev_ms,
+          "decode_tokens_per_s": LM_BATCH * LM_NEW / warm["decode_s"],
+          "decode_ms_per_step": warm["decode_s"] * 1e3 / LM_NEW,
+          "over_tol_by_step": worst, "decode_profile": decode_profile,
+          "tokens": kern["tokens"][0].tolist()})
+    del params, kern, plain, warm
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+def profile_decode(params, prompt, cfg, feed, steps=8):
+    """torch.profiler over ``steps`` warm decode steps after a prefill: the
+    device's own activity (kernels, copies, fills; not the host ops that
+    launched them) against the window's host wall (the busy share), its
+    count per step, and what takes the most device time.  Device times are
+    None where the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import lm_steps
+
+    S = prompt.shape[1]
+    shape = InputShape("lm", S + steps, prompt.shape[0], "prefill")
+    _, caches = lm_steps.prefill_step(params, prompt, cfg,
+                                      capacity=lm_steps.cache_capacity(cfg,
+                                                                       shape))
+    lm_steps.decode_step(params, caches, feed[:, :1], S, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(1, steps + 1):
+            lm_steps.decode_step(params, caches, feed[:, t:t + 1], S + t, cfg)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"steps": steps, "wall_ms_per_step": wall_us / 1e3 / steps,
+            "device_ms_per_step": (device_us / 1e3 / steps
+                                   if device_us else None),
+            "device_busy_share": device_us / wall_us if device_us else None,
+            "device_activities_per_step": launches / steps,
+            "top": [{"name": e.key[:80], "calls_per_step": e.count / steps,
+                     "ms_per_step": e.self_device_time_total / 1e3 / steps}
+                    for e in top]}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main():
@@ -348,6 +627,7 @@ def main():
 
     # ---- phase 2: each kernel against its plain version on the card
     errs = check_kernels(args.seed)
+    errs["flash_attention"] = check_flash(args.seed)
 
     # ---- phase 3: the serving slice, LSTM then 2-layer GRU
     launches, wall = {}, {}
@@ -356,11 +636,18 @@ def main():
         launches[name], wall[name] = serve_slice(cfg, args.seed)
         require(launches[name] > 0, f"{name} never launched on its path")
 
-    # ---- phase 4: times at the serving shape
+    # ---- phase 4: times at the serving shape, and flash at the LM shape
     times = time_kernels(args.seed)
+    times["flash_attention"] = time_flash(args.seed)
+
+    # ---- phase 5: the dense-LM prefill and decode slice
+    launches["flash_attention"] = lm_slice(args.seed)
+    require(launches["flash_attention"] > 0,
+            "flash_attention never launched on its path")
 
     replaces = {"lstm_cell": "src/repro/kernels/lstm_cell.py:24",
-                "gru_cell": "src/repro/kernels/gru_cell.py:17"}
+                "gru_cell": "src/repro/kernels/gru_cell.py:17",
+                "flash_attention": "src/repro/kernels/flash_attention.py:28"}
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",
          "replaces": replaces[n], "launches": launches[n],
@@ -368,7 +655,8 @@ def main():
          "plain_ms": times[n]["plain_ms"], "bound_ms": times[n]["bound_ms"],
          "bound_by": times[n]["bound_by"],
          "library_ms": times[n]["library_ms"],
-         "engine_full_flush_wall_ms": wall[n] * 1e3}
+         **({"engine_full_flush_wall_ms": wall[n] * 1e3} if n in wall
+            else {})}
         for n in ops.KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,10 @@ use, by its own ``nvcc`` process (all of them started together), into
 ``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root.  The
 hash covers the source and the compiler flags, so an edited kernel is
 rebuilt and an unchanged one is reused.  The libraries are loaded with
-``ctypes``: pointers and the stream go in as ``c_void_p``, sizes as
-``c_int``, and every entry returns ``cudaGetLastError()`` after its launch.
+``ctypes`` with each entry's own argument types (``_ARGTYPES``): pointers
+and the stream go in as ``c_void_p``, sizes and flags as ``c_int``, scales
+as ``c_float``, and every entry returns ``cudaGetLastError()`` after its
+launch.
 
 Nothing here runs when the module is imported: a machine without ``nvcc``
 or a card imports it, and only a launch on a CUDA tensor needs them.
@@ -28,13 +30,19 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-KERNELS = ("lstm_cell", "gru_cell")
+KERNELS = ("lstm_cell", "gru_cell", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# argument layout of each C entry after the data pointers: sizes, the stream
-_N_PTRS = {"lstm_cell": 8, "gru_cell": 6}
-_N_INTS = 3                                  # B, I, H
+# argument types of each C entry: the data pointers (inputs, then outputs),
+# then its sizes, flags and scales; the stream follows them all
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "lstm_cell": [_P] * 8 + [_I] * 3,                   # B, I, H
+    "gru_cell": [_P] * 6 + [_I] * 3,                    # B, I, H
+    # B, S, Hq, Hkv, hd, window; scale
+    "flash_attention": [_P] * 4 + [_I] * 6 + [_F],
+}
 
 # launches per kernel; each wrapper adds one right after its launch
 LAUNCHES: Counter = Counter()
@@ -62,8 +70,7 @@ def _library_path(name: str) -> Path:
 
 def _bind(name: str, path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    args = [ctypes.c_void_p] * _N_PTRS[name] + [ctypes.c_int] * _N_INTS \
-        + [ctypes.c_void_p]
+    args = _ARGTYPES[name] + [_P]
     for suffix in ("f32", "bf16"):
         fn = getattr(lib, f"repro_{name}_{suffix}")
         fn.argtypes, fn.restype = args, ctypes.c_int
@@ -156,18 +163,19 @@ def check_inputs(name: str, tensors: Sequence[torch.Tensor],
 
 
 def launch(name: str, tensors: Sequence[torch.Tensor],
-           dims: Tuple[int, int, int]) -> None:
+           scalars: Sequence) -> None:
     """Launch ``name`` on the current stream of the tensors' device with
-    data pointers ``tensors`` (inputs, then outputs) and sizes ``dims``;
-    raise if the launch is refused.  The tensors' device is current only
-    for the launch, so the caller's current device is left as it was."""
+    data pointers ``tensors`` (inputs, then outputs) and ``scalars`` (sizes,
+    flags, scales, as ``_ARGTYPES`` lists them); raise if the launch is
+    refused.  The tensors' device is current only for the launch, so the
+    caller's current device is left as it was."""
     lib = _libs.get(name) or build((name,))[name]
     dev = tensors[0].device
     suffix = "f32" if tensors[0].dtype == torch.float32 else "bf16"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"repro_{name}_{suffix}")(
-            *[t.data_ptr() for t in tensors], *dims, stream)
+            *[t.data_ptr() for t in tensors], *scalars, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err} ({lib.repro_error_string(err).decode()})")

@@ -1,7 +1,8 @@
-"""Drop-in recurrent steps that route model code through the CUDA kernels.
+"""Entry points that route model code through the CUDA kernels.
 
 ``lstm_cell_fused`` / ``gru_cell_fused`` take the forecaster's per-layer
-param dict ``{"wx", "wh", "b"}``.
+param dict ``{"wx", "wh", "b"}``; ``flash_attention`` takes (B, S, H, hd)
+q, k, v, as ``models/attention.py`` calls it.
 On the CPU they compute the plain versions; on CUDA tensors they launch the
 hand-written kernels (built at first use, see :mod:`._cuda`) or raise, with
 no fallback.  The kernels are forward only: on a CUDA tensor that autograd
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels import _cuda
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gru_cell import gru_cell
 from repro_torch.kernels.lstm_cell import lstm_cell
 

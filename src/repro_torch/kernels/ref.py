@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the fused recurrent cells.
+"""Plain PyTorch versions of the CUDA kernels: the fused recurrent cells and
+causal flash attention.
 
 They are the correctness ground truth for the CUDA kernels (``csrc/``) and
-what the kernel wrappers compute for tensors on the CPU.  Same layouts as
-the JAX package: gates ``[i|f|g|o]`` (LSTM) and ``[z|r|h~]`` (GRU) along
-the last axis of ``wx (I, G*H)`` / ``wh (H, G*H)``, one bias, no hidden
-bias in the GRU.
+what the kernel wrappers compute for tensors on the CPU; the counterpart of
+``src/repro/kernels/ref.py``.  Same layouts as the JAX package: gates
+``[i|f|g|o]`` (LSTM) and ``[z|r|h~]`` (GRU) along the last axis of
+``wx (I, G*H)`` / ``wh (H, G*H)``, one bias, no hidden bias in the GRU;
+attention in ``(B, S, H, hd)``.
 """
 from __future__ import annotations
 
@@ -29,3 +31,29 @@ def gru_cell_ref(x, h, wx, wh, b):
     r = torch.sigmoid(zx[..., H:2 * H] + zh[..., H:2 * H])
     h_tilde = torch.tanh(zx[..., 2 * H:] + r * zh[..., 2 * H:])
     return z * h + (1.0 - z) * h_tilde
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """q: (B, S, H, hd); k, v: (B, S, Hkv, hd). GQA via head grouping.
+
+    Returns (B, S, H, hd) in v's dtype.  Plain materialized-scores version:
+    scores in the input dtype, then fp32 scale, mask (-1e30) and softmax;
+    the weights go back to v's dtype for the product.  As in the JAX oracle,
+    ``window`` applies only with ``causal``.
+    """
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else hd ** -0.5
+    qg = q.reshape(B, S, Hkv, G, hd)
+    s = torch.einsum("bskgh,btkh->bskgt", qg, k).float() * scale
+    if causal:
+        i = torch.arange(S, device=q.device)[:, None]
+        j = torch.arange(S, device=q.device)[None, :]
+        mask = j <= i
+        if window:
+            mask &= j > i - window
+        s = torch.where(mask[None, :, None, None, :], s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bskgt,btkh->bskgh", w.to(v.dtype), v).to(v.dtype)
+    return o.reshape(B, S, Hq, hd)

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 from typing import Dict
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -25,7 +24,7 @@ from repro_torch.configs.base import ForecasterConfig
 from repro_torch.kernels import ref
 from repro_torch.kernels.gru_cell import gru_cell
 from repro_torch.kernels.lstm_cell import lstm_cell
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, tree_from_numpy
 
 # cell_impl -> (LSTM step, GRU step): the fused CUDA cells, or their plain
 # versions
@@ -80,15 +79,7 @@ def params_from_numpy(tree, device="cpu") -> Dict:
     """A forecaster tree of numpy arrays (e.g. ``jax.tree.map(np.asarray,
     params)``) -> the same tree of tensors on ``device``, layouts unchanged.
     bfloat16 leaves keep their dtype."""
-    def leaf(a):
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":            # numpy has no native bf16
-            t = torch.from_numpy(a.view(np.int16).copy())
-            return t.view(torch.bfloat16).to(device)
-        return torch.from_numpy(np.array(a)).to(device)
-    return {"layers": [{k: leaf(p[k]) for k in ("wx", "wh", "b")}
-                       for p in tree["layers"]],
-            "head": {k: leaf(tree["head"][k]) for k in ("w", "b")}}
+    return tree_from_numpy(tree, device)
 
 
 def params_to_numpy(params) -> Dict:

@@ -1,15 +1,101 @@
-"""Shared building blocks.  The serving slice needs only the dense init."""
+"""Shared building blocks: dense init, RMS norm, RoPE, the SwiGLU MLP and
+token embeddings; the counterpart of ``src/repro/models/layers.py``
+(``layer_norm`` is not ported yet).  Also the numpy -> tensor conversion of
+parameter trees made by the JAX package.
+
+Init draws from an explicit ``torch.Generator`` on the generator's own
+device: a CPU generator gives the same weights whichever device they are
+later moved to, a CUDA generator draws full-width models on the card.
+"""
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def dense_init(generator: torch.Generator, in_dim, out_dim, scale=None,
                dtype=torch.float32):
     """(in_dim, out_dim) normal weights times ``scale`` (default
-    ``in_dim ** -0.5``), drawn on the CPU from ``generator``, so a seed
-    gives the same weights whichever device they are later moved to."""
+    ``in_dim ** -0.5``), drawn in fp32 on ``generator``'s device."""
     scale = scale if scale is not None else in_dim ** -0.5
     w = torch.randn((in_dim, out_dim), generator=generator,
-                    dtype=torch.float32) * scale
+                    dtype=torch.float32, device=generator.device) * scale
     return w.to(dtype)
+
+
+def rms_norm(x, scale, eps=1e-5):
+    """RMS norm over the last axis, computed in fp32, cast back to x's
+    dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * scale.float()).to(dt)
+
+
+# ------------------------------------------------------------------ RoPE
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: (..., S) integers.  Half-split
+    layout: ``concat[x1 cos - x2 sin, x1 sin + x2 cos]``, in fp32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    angles = positions[..., None].float() * freqs           # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                   # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ MLP
+def init_mlp(generator: torch.Generator, d_model, d_ff,
+             dtype=torch.float32):
+    return {
+        "w_in": dense_init(generator, d_model, d_ff, dtype=dtype),
+        "w_gate": dense_init(generator, d_model, d_ff, dtype=dtype),
+        "w_out": dense_init(generator, d_ff, d_model, scale=d_ff ** -0.5,
+                            dtype=dtype),
+    }
+
+
+def mlp(params, x):
+    """SwiGLU MLP, silu on the gate. x: (..., d)."""
+    h = torch.matmul(x, params["w_in"].to(x.dtype))
+    g = torch.matmul(x, params["w_gate"].to(x.dtype))
+    return torch.matmul(h * F.silu(g), params["w_out"].to(x.dtype))
+
+
+# ------------------------------------------------------------------ embeddings
+def init_embedding(generator: torch.Generator, vocab, d_model,
+                   dtype=torch.float32):
+    return (torch.randn((vocab, d_model), generator=generator,
+                        dtype=torch.float32, device=generator.device)
+            * 0.02).to(dtype)
+
+
+def embed(embed_tokens, tokens, dtype):
+    """Rows ``tokens`` of the table cast to ``dtype`` (cast, then gather;
+    the cast is free when the table is already in ``dtype``)."""
+    return F.embedding(tokens, embed_tokens.to(dtype))
+
+
+# --------------------------------------------------- numpy -> port trees
+def tree_from_numpy(tree, device="cpu"):
+    """A tree of dicts and lists of numpy arrays (e.g. ``jax.tree.map(
+    np.asarray, params)``) -> the same tree of tensors on ``device``,
+    layouts and dtypes unchanged.  bfloat16 arrays (numpy has no native
+    bfloat16) cross as a 16-bit view."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_from_numpy(v, device) for v in tree]
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)

@@ -43,7 +43,7 @@ def resolve_device(device=None) -> torch.device:
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device: the serving path runs on the card; pass "
+            "no CUDA device: the port runs on the card; pass "
             "device='cpu' to run the plain versions on the CPU")
     return device
 

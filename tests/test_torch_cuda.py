@@ -10,11 +10,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ForecasterConfig  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.launch import lm_steps  # noqa: E402
 from repro_torch.models import forecaster  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 
 @pytest.fixture
@@ -44,7 +50,8 @@ def test_kernels_match_plain(cuda, B, I, H, dt):
     g1 = ops.gru_cell_fused(x, h, gp)
     g2 = ref.gru_cell_ref(x, h, gp["wx"], gp["wh"], gp["b"])
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"lstm_cell": 1, "gru_cell": 1}
+    assert ops.launch_counts() == {"lstm_cell": 1, "gru_cell": 1,
+                                   "flash_attention": 0}
     for a, b in ((h1, h2), (c1, c2), (g1, g2)):
         assert a.dtype == dt and a.device == x.device
         torch.testing.assert_close(a.float(), b.float(), rtol=TOL[dt],
@@ -92,3 +99,75 @@ def test_forecast_on_card_matches_cpu(cuda, cell, n_layers):
         y_cpu = forecaster.forecast(params, x, cfg, "torch")
     assert ops.launch_counts()[f"{cell}_cell"] == cfg.lookback * n_layers
     torch.testing.assert_close(y_card, y_cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,win", [
+    (2, 256, 8, 2, 64, 0),          # GQA 4:1
+    (1, 512, 2, 2, 32, 128),        # sliding window
+    (2, 200, 4, 2, 64, 0),          # unaligned S
+    (1, 333, 6, 2, 16, 50),         # unaligned, windowed, hd 16
+    (1, 300, 10, 2, 128, 0),        # hd 128, GQA 5:1 as in qwen3-14b
+])
+def test_flash_matches_plain(cuda, B, S, Hq, Hkv, hd, win, dt):
+    g = torch.Generator().manual_seed(S + Hq)
+    q, k, v = (torch.randn(B, S, H, hd, generator=g).to(cuda, dt)
+               for H in (Hq, Hkv, Hkv))
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, window=win)
+    assert out.dtype == dt and out.shape == q.shape and out.is_cuda
+    torch.testing.assert_close(out.float(), want.float(), rtol=FLASH_TOL[dt],
+                               atol=FLASH_TOL[dt])
+
+
+def test_flash_refuses_bad_inputs(cuda):
+    g = torch.Generator().manual_seed(0)
+
+    def qkv(hd=64, Hq=4, Hkv=2, dt=torch.float32):
+        return [torch.randn(1, 64, H, hd, generator=g).to(cuda, dt)
+                for H in (Hq, Hkv, Hkv)]
+    q, k, v = qkv()
+    ops.reset_launch_counts()
+    cases = [
+        (ValueError, (q, k.cpu(), v)),                      # device mix
+        (ValueError, (q.cpu(), k, v)),
+        (TypeError, qkv(dt=torch.float16)),                 # wrong dtype
+        (TypeError, (q, k.bfloat16(), v)),
+        (ValueError, qkv(hd=48)),                           # hd out of range
+        (ValueError, qkv(hd=256)),
+        (ValueError, qkv(Hq=3, Hkv=2)),                     # Hq % Hkv
+        (ValueError, (q.transpose(1, 2).contiguous().transpose(1, 2), k, v)),
+        (RuntimeError, (q.clone().requires_grad_(), k, v)),  # forward only
+    ]
+    for exc, args in cases:
+        with pytest.raises(exc):
+            ops.flash_attention(*args)
+    assert ops.launch_counts()["flash_attention"] == 0
+    with torch.no_grad():
+        ops.flash_attention(q.clone().requires_grad_(), k, v)
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
+def test_lm_prefill_and_decode_kernel_route_match_plain(cuda):
+    """The LM slice at a reduced width on the card: one flash launch per
+    layer in the prefill, none in decode, logits of both routes within the
+    bf16 tolerance scaled by the largest |logit|."""
+    cfg = dataclasses.replace(get_config("qwen3-14b").reduced(),
+                              n_kv_heads=2)
+    gen = torch.Generator(cuda).manual_seed(0)
+    params = tf.init_model(gen, cfg, dtype=torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 300), generator=gen,
+                           device=cuda)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        kern = lm_steps.generate(params, prompt, cfg, 4, attn_impl="kernel")
+        assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+        plain = lm_steps.generate(params, prompt, cfg, 4, attn_impl="torch",
+                                  feed=kern["tokens"])
+    for a, b in zip([kern["prefill_logits"]] + kern["logits"],
+                    [plain["prefill_logits"]] + plain["logits"]):
+        bound = 3e-2 * max(float(b.float().abs().max()), 1.0)
+        assert float((a.float() - b.float()).abs().max()) < bound

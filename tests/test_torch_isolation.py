@@ -38,7 +38,8 @@ def test_port_sources_import_neither_jax_nor_repro():
 
 
 def test_importing_the_serving_path_loads_no_jax():
-    code = ("import sys, repro_torch.serving, repro_torch.launch.serve; "
+    code = ("import sys, repro_torch.serving, repro_torch.launch.serve, "
+            "repro_torch.launch.lm_steps, repro_torch.models.transformer; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")

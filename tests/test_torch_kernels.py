@@ -105,7 +105,8 @@ def test_cpu_wrappers_launch_nothing():
                            {"wx": f(I, 3 * H), "wh": f(H, 3 * H),
                             "b": f(3 * H)})
     assert h.shape == c.shape == g.shape == (B, H)
-    assert ops.launch_counts() == {"lstm_cell": 0, "gru_cell": 0}
+    assert ops.launch_counts() == {"lstm_cell": 0, "gru_cell": 0,
+                                   "flash_attention": 0}
 
 
 def test_cuda_path_refuses_a_cpu_cuda_mix():
