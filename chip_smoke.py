@@ -8,7 +8,8 @@ fused cells) at the paper forecaster's full width for the LSTM and a
 2-layer GRU, checks the results against the same engine on the CPU, times
 the kernels at their paths' shapes, drives the dense-LM prefill and decode
 steps at qwen3-14b's full width (8 of its 40 layers) through the flash
-attention kernel, holds them against the plain attention route, and ends
+attention kernel (bf16: wgmma on the tensor cores fed by TMA; fp32: the
+CUDA-core kernel), holds them against the plain attention route, and ends
 with one JSON status line.
 
     python3 chip_smoke.py [--seed N]
@@ -47,12 +48,19 @@ HISTORY_DAYS = 14
 # batch 32 x 32768 cut to 2 x 4096; greedy decode steps after it
 LM_ARCH, LM_LAYERS, LM_BATCH, LM_PROMPT, LM_NEW = "qwen3-14b", 8, 2, 4096, 32
 # (B, S, Hq, Hkv, hd, window): the sweep of tests/test_kernels.py, an
-# unaligned S, then the LM slice's prefill shape, full and windowed
+# unaligned S, the LM slice's prefill shape, full and windowed; then the
+# bf16 kernel's tile (128 rows / keys) and TMA box edges: S of 1, half a
+# tile, a tile less and more one row, 4097; a window inside one tile and
+# one across tiles; hd 16, 32, 64, 128; GQA 5:1 at hd 128
 FLASH_SHAPES = [(2, 128, 4, 4, 32, 0), (2, 256, 8, 2, 64, 0),
                 (1, 256, 4, 1, 64, 0), (1, 512, 2, 2, 32, 128),
                 (3, 384, 6, 2, 16, 0), (2, 200, 4, 2, 64, 0),
                 (1, 200, 4, 2, 128, 64), (2, 4096, 40, 8, 128, 0),
-                (2, 4096, 40, 8, 128, 1024)]
+                (2, 4096, 40, 8, 128, 1024),
+                (1, 1, 8, 2, 128, 0), (2, 64, 8, 2, 64, 0),
+                (1, 127, 4, 2, 32, 0), (1, 129, 4, 1, 16, 0),
+                (1, 4097, 8, 2, 128, 0), (1, 1000, 4, 2, 64, 48),
+                (1, 3000, 4, 2, 128, 1024), (2, 300, 10, 2, 128, 0)]
 FLASH_SLICE = (2, 4096, 40, 8, 128)
 
 
@@ -331,6 +339,7 @@ def _bound(t, peak_flops):
     ops_ms = t["flops"] / peak_flops * 1e3
     t["bound_ms"] = max(bytes_ms, ops_ms)
     t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    t["bound_share"] = t["bound_ms"] / t["ms"]
     return t
 
 
@@ -395,7 +404,9 @@ def time_flash(seed):
     """Flash kernel, its plain version and scaled_dot_product_attention at
     the LM slice's prefill shape (B=2, S=4096, Hq=40, Hkv=8, hd=128, bf16,
     causal), beside the bound: the causal FLOPs of these inputs on the bf16
-    tensor cores, or q, k, v read and o written once."""
+    tensor cores, or q, k, v read and o written once; with the achieved
+    TFLOP/s of the kernel and of the library call, and the kernel's share
+    of the bound (bound_ms / ms)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -424,6 +435,8 @@ def time_flash(seed):
                  bytes=2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd),
                  flops=4 * B * Hq * hd * S * (S + 1) // 2)
     _bound(out, BF16_TENSOR_FLOPS_PER_S)
+    out["tflops"] = out["flops"] / (out["ms"] * 1e-3) / 1e12
+    out["library_tflops"] = out["flops"] / (out["library_ms"] * 1e-3) / 1e12
     emit({"phase": "flash_timing",
           "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
                     "dtype": "bfloat16", "causal": True},
@@ -506,18 +519,18 @@ def lm_slice(seed):
             return out
 
         shape = InputShape("lm", LM_PROMPT + LM_NEW, LM_BATCH, "prefill")
+        capacity = lm_steps.cache_capacity(cfg, shape)
         start, end = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
         ops.flash_attention = timed_flash
         try:
             start.record()
-            lm_steps.prefill_step(params, prompt, cfg,
-                                  capacity=lm_steps.cache_capacity(cfg,
-                                                                   shape))
+            lm_steps.prefill_step(params, prompt, cfg, capacity=capacity)
             end.record()
         finally:
             ops.flash_attention = real
         torch.cuda.synchronize()
+        prefill_profile = profile_prefill(params, prompt, cfg, capacity)
         decode_profile = profile_decode(params, prompt, cfg, kern["tokens"])
     prefill_dev_ms = start.elapsed_time(end)
     flash_ms = sum(s.elapsed_time(e) for s, e in spans)
@@ -536,22 +549,58 @@ def lm_slice(seed):
           "flash_share_of_prefill": flash_ms / prefill_dev_ms,
           "decode_tokens_per_s": LM_BATCH * LM_NEW / warm["decode_s"],
           "decode_ms_per_step": warm["decode_s"] * 1e3 / LM_NEW,
-          "over_tol_by_step": worst, "decode_profile": decode_profile,
+          "over_tol_by_step": worst, "prefill_profile": prefill_profile,
+          "decode_profile": decode_profile,
           "tokens": kern["tokens"][0].tolist()})
     del params, kern, plain, warm
     torch.cuda.empty_cache()
     return counts["flash_attention"]
 
 
-def profile_decode(params, prompt, cfg, feed, steps=8):
-    """torch.profiler over ``steps`` warm decode steps after a prefill: the
-    device's own activity (kernels, copies, fills; not the host ops that
-    launched them) against the window's host wall (the busy share), its
-    count per step, and what takes the most device time.  Device times are
-    None where the profiler saw no device activity."""
+def _device_profile(run, steps):
+    """torch.profiler around ``run()`` (which does ``steps`` steps and ends
+    in a synchronize): the device's own activity (kernels, copies, fills;
+    not the host ops that launched them) against the window's host wall
+    (the busy share), its count per step, and what takes the most device
+    time.  Device times are None where the profiler saw no device
+    activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"steps": steps, "wall_ms_per_step": wall_us / 1e3 / steps,
+            "device_ms_per_step": (device_us / 1e3 / steps
+                                   if device_us else None),
+            "device_busy_share": device_us / wall_us if device_us else None,
+            "device_activities_per_step": launches / steps,
+            "top": [{"name": e.key[:80], "calls_per_step": e.count / steps,
+                     "ms_per_step": e.self_device_time_total / 1e3 / steps}
+                    for e in top]}
+
+
+def profile_prefill(params, prompt, cfg, capacity):
+    """torch.profiler over one warm prefill: where its device time goes."""
+    from repro_torch.launch import lm_steps
+
+    return _device_profile(
+        lambda: lm_steps.prefill_step(params, prompt, cfg, capacity=capacity),
+        1)
+
+
+def profile_decode(params, prompt, cfg, feed, steps=8):
+    """torch.profiler over ``steps`` warm decode steps after a prefill."""
+    import torch
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import lm_steps
 
@@ -562,26 +611,12 @@ def profile_decode(params, prompt, cfg, feed, steps=8):
                                                                        shape))
     lm_steps.decode_step(params, caches, feed[:, :1], S, cfg)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for t in range(1, steps + 1):
             lm_steps.decode_step(params, caches, feed[:, t:t + 1], S + t, cfg)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return {"steps": steps, "wall_ms_per_step": wall_us / 1e3 / steps,
-            "device_ms_per_step": (device_us / 1e3 / steps
-                                   if device_us else None),
-            "device_busy_share": device_us / wall_us if device_us else None,
-            "device_activities_per_step": launches / steps,
-            "top": [{"name": e.key[:80], "calls_per_step": e.count / steps,
-                     "ms_per_step": e.self_device_time_total / 1e3 / steps}
-                    for e in top]}
+
+    return _device_profile(run, steps)
 
 
 def _leaves(tree):
@@ -604,7 +639,7 @@ def main():
         sys.exit("chip_smoke: no CUDA device; the port's kernels need one")
     sys.path.insert(0, str(SRC))
     from repro_torch.configs.base import ForecasterConfig
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _cuda, ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -620,10 +655,14 @@ def main():
     t0 = time.perf_counter()
     ops.build()
     build_s = time.perf_counter() - t0
+    # ptxas -v of each kernel compiled in this run (none if the libraries
+    # were already built): registers, stack, spills, static shared memory
+    ptxas = {n: _cuda.ptxas_report(log) for n, log in _cuda.BUILD_LOG.items()}
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count(), "kernel_build_s": build_s})
+          "count": torch.cuda.device_count(), "kernel_build_s": build_s,
+          "ptxas": ptxas})
 
     # ---- phase 2: each kernel against its plain version on the card
     errs = check_kernels(args.seed)
@@ -654,6 +693,7 @@ def main():
          "max_abs_err": errs[n], "ms": times[n]["ms"],
          "plain_ms": times[n]["plain_ms"], "bound_ms": times[n]["bound_ms"],
          "bound_by": times[n]["bound_by"],
+         "bound_share": times[n]["bound_share"],
          "library_ms": times[n]["library_ms"],
          **({"engine_full_flush_wall_ms": wall[n] * 1e3} if n in wall
             else {})}

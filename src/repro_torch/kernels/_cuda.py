@@ -8,7 +8,9 @@ rebuilt and an unchanged one is reused.  The libraries are loaded with
 ``ctypes`` with each entry's own argument types (``_ARGTYPES``): pointers
 and the stream go in as ``c_void_p``, sizes and flags as ``c_int``, scales
 as ``c_float``, and every entry returns ``cudaGetLastError()`` after its
-launch.
+launch.  ``ptxas -v`` reports each kernel's registers, shared memory and
+spills; a build keeps that report in ``BUILD_LOG`` (:func:`ptxas_report`
+parses it).
 
 Nothing here runs when the module is imported: a machine without ``nvcc``
 or a card imports it, and only a launch on a CUDA tensor needs them.
@@ -18,12 +20,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from collections import Counter
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -32,7 +35,7 @@ BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 KERNELS = ("lstm_cell", "gru_cell", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # argument types of each C entry: the data pointers (inputs, then outputs),
 # then its sizes, flags and scales; the stream follows them all
@@ -46,6 +49,8 @@ _ARGTYPES = {
 
 # launches per kernel; each wrapper adds one right after its launch
 LAUNCHES: Counter = Counter()
+# nvcc's stderr (the ptxas report) of each source compiled by this process
+BUILD_LOG: Dict[str, str] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -109,12 +114,42 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, ctypes.CDLL]:
                 failed.append(f"nvcc failed on csrc/{name}.cu "
                               f"(exit {proc.returncode}):\n{err}")
             else:
+                BUILD_LOG[name] = err
                 os.replace(tmp, path)
         if failed:
             raise RuntimeError("\n".join(failed))
         for name in todo:
             _libs[name] = _bind(name, _library_path(name))
         return {n: _libs[n] for n in names}
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_NUMBERS = {
+    "stack_bytes": re.compile(r"(\d+) bytes stack frame"),
+    "spill_store_bytes": re.compile(r"(\d+) bytes spill stores"),
+    "spill_load_bytes": re.compile(r"(\d+) bytes spill loads"),
+    "registers": re.compile(r"Used (\d+) registers"),
+    "static_smem_bytes": re.compile(r"(\d+) bytes smem"),
+}
+
+
+def ptxas_report(log: str) -> List[dict]:
+    """One dict per kernel of a ``ptxas -v`` report: its mangled name and
+    the numbers ptxas printed for it (registers, stack, spills, static
+    shared memory)."""
+    out: List[dict] = []
+    for line in log.splitlines():
+        entry = _PTXAS_ENTRY.search(line)
+        if entry:
+            out.append({"kernel": entry.group(1)})
+            continue
+        if not out:
+            continue
+        for key, pat in _PTXAS_NUMBERS.items():
+            found = pat.search(line)
+            if found:
+                out[-1][key] = int(found.group(1))
+    return out
 
 
 # shared memory of one block: 4 rows of [x | h] in fp32, within the 48 KB a

@@ -123,6 +123,49 @@ def test_flash_matches_plain(cuda, B, S, Hq, Hkv, hd, win, dt):
                                atol=FLASH_TOL[dt])
 
 
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,win", [
+    (1, 1, 8, 2, 128, 0),           # one row: every box mostly past S
+    (2, 64, 8, 2, 64, 0),           # half a tile
+    (1, 127, 4, 2, 32, 0),          # a tile less one row
+    (1, 129, 4, 1, 16, 0),          # a tile and one row
+    (1, 4097, 8, 2, 128, 0),        # the prefill length and one row
+    (1, 1000, 4, 2, 64, 48),        # window inside one tile
+    (1, 3000, 4, 2, 128, 1024),     # window across tiles
+    (2, 300, 10, 2, 128, 0),        # GQA 5:1 at hd 128 (qwen3-14b)
+])
+def test_flash_bf16_tile_edges_match_plain(cuda, B, S, Hq, Hkv, hd, win):
+    """The bf16 kernel (wgmma + TMA) at its tile and box edges: each element
+    within 3e-2 of the plain version, and each row within 3e-2 of the plain
+    row relative to the row's norm."""
+    g = torch.Generator().manual_seed(S + hd)
+    q, k, v = (torch.randn(B, S, H, hd, generator=g).to(cuda, torch.bfloat16)
+               for H in (Hq, Hkv, Hkv))
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, window=win).float()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+    rel = (out.float() - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(
+        1e-30)
+    assert float(rel.max()) <= tol
+
+
+@pytest.mark.parametrize("scale", [-0.125, 0.0, 0.05])
+def test_flash_bf16_any_scale_matches_plain(cuda, scale):
+    """The bf16 kernel takes its row max on unscaled scores; a negative
+    scale goes to wgmma as the sign of q, zero gives uniform weights."""
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn(1, 300, H, 64, generator=g).to(cuda, torch.bfloat16)
+               for H in (4, 2, 2))
+    out = ops.flash_attention(q, k, v, window=100, scale=scale)
+    want = ref.flash_attention_ref(q, k, v, window=100, scale=scale)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
 def test_flash_refuses_bad_inputs(cuda):
     g = torch.Generator().manual_seed(0)
 

@@ -5,7 +5,8 @@ On the CPU the port's ``ops.flash_attention`` computes its plain version
 Pallas kernel in interpret mode and against the JAX oracle
 ``repro.kernels.ref.flash_attention_ref``, on the cases of
 ``tests/test_kernels.py`` (MHA, GQA 4:1, MQA, sliding window, 6 heads with
-hd 16; and bf16), inputs from a numpy seed, at 2e-5 (fp32) / 3e-2 (bf16).
+hd 16; and bf16 at hd 64 and at the LM path's hd 128 with GQA 5:1), inputs
+from a numpy seed, at 2e-5 (fp32) / 3e-2 (bf16).
 Causal only: the JAX kernel and oracle disagree on windows without
 ``causal`` (ROADMAP C).  The CUDA kernel itself is held against the same
 plain version on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
@@ -31,9 +32,12 @@ SWEEP = [
     (3, 384, 6, 2, 16, 0, 128, 128),        # odd head count / small hd
 ]
 BF16 = (2, 256, 4, 2, 64, 0, 128, 128)
+# the LM path's head size and GQA fold (qwen3-14b: hd 128, 40 / 8 heads)
+BF16_PATH = (1, 256, 10, 2, 128, 0, 128, 128)
 CASES = ([pytest.param(c, "float32", id=f"fp32-{i}")
           for i, c in enumerate(SWEEP)]
-         + [pytest.param(BF16, "bfloat16", id="bf16")])
+         + [pytest.param(BF16, "bfloat16", id="bf16"),
+            pytest.param(BF16_PATH, "bfloat16", id="bf16-hd128-gqa5")])
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
 

@@ -121,3 +121,28 @@ def test_cuda_path_refuses_a_cpu_cuda_mix():
         ops.lstm_cell_fused(args[0], args[1], args[2],
                             {"wx": args[3], "wh": args[4], "b": args[5]})
     assert ops.launch_counts()["lstm_cell"] == 0
+
+
+def test_ptxas_report_reads_each_kernels_numbers():
+    """The build keeps nvcc's ``-Xptxas -v`` report; ``ptxas_report`` reads
+    registers, stack, spills and static shared memory per kernel."""
+    from repro_torch.kernels import _cuda
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z4flashILi128EEvv' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _Z4flashILi128EEvv",
+        "    72 bytes stack frame, 72 bytes spill stores, 64 bytes spill "
+        "loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 16 bytes smem",
+        "ptxas info    : Compiling entry function '_Z4cellv' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 1 barriers",
+    ])
+    assert "-Xptxas" in _cuda.NVCC_FLAGS and "-v" in _cuda.NVCC_FLAGS
+    assert _cuda.ptxas_report(log) == [
+        {"kernel": "_Z4flashILi128EEvv", "stack_bytes": 72,
+         "spill_store_bytes": 72, "spill_load_bytes": 64, "registers": 168,
+         "static_smem_bytes": 16},
+        {"kernel": "_Z4cellv", "stack_bytes": 0, "spill_store_bytes": 0,
+         "spill_load_bytes": 0, "registers": 32}]
+    assert _cuda.ptxas_report("") == []
