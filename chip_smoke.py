@@ -4,13 +4,14 @@
 Builds the hand-written CUDA kernels from the sources in this checkout,
 holds each against its plain PyTorch version on the card, drives the
 forecast-serving path end to end (registry -> router -> bucketed engine ->
-fused cells) at the paper forecaster's full width for the LSTM and a
-2-layer GRU, checks the results against the same engine on the CPU, times
-the kernels at their paths' shapes, drives the dense-LM prefill and decode
-steps at qwen3-14b's full width (8 of its 40 layers) through the flash
-attention kernel (bf16: wgmma on the tensor cores fed by TMA; fp32: the
-CUDA-core kernel), holds them against the plain attention route, and ends
-with one JSON status line.
+fused recurrent layers, one launch per layer) at the paper forecaster's
+full width for the LSTM and a 2-layer GRU, checks the results against the
+same engine on the CPU, profiles one full flush, times the kernels at their
+paths' shapes beside cuDNN's sequence calls, drives the dense-LM prefill
+and decode steps at qwen3-14b's full width (8 of its 40 layers) through the
+flash attention kernel (bf16: wgmma on the tensor cores fed by TMA; fp32:
+the CUDA-core kernel), holds them against the plain attention route, and
+ends with one JSON status line.
 
     python3 chip_smoke.py [--seed N]
 
@@ -39,6 +40,12 @@ FP32_FLOPS_PER_S = 67e12
 BF16_TENSOR_FLOPS_PER_S = 989e12
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # tests/test_kernels.py: cells
+# a recurrent layer past one step in bf16: the plain cell rounds its two
+# products and their sum to bf16, the kernel sums in fp32, and the
+# recurrence carries the difference (0.138 seen at H=256 with weights of
+# std 0.3, T=8); against the plain cell in fp32 with the state rounded to
+# bf16 every step, the kernel's own function, the step tolerance holds
+LAYER_BF16_TOL = 0.2
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # and flash attention
 REQUESTS_PER_CONSUMER = 8
 CONSUMERS = 256
@@ -89,21 +96,42 @@ def _row_rel_err(a, b):
 
 
 # --------------------------------------------------------------- phase 2
-def check_kernels(seed):
-    """Kernel vs plain version on the same CUDA tensors; returns the max
-    abs error of each kernel at the serving shape in fp32."""
-    import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.gru_cell import gru_cell
-    from repro_torch.kernels.lstm_cell import lstm_cell
+LSTM_SHAPES = [(8, 1, 16), (64, 8, 64), (128, 4, 128), (32, 16, 256)]
+GRU_SHAPES = [(8, 1, 16), (64, 8, 64), (128, 4, 128)]
+# the shapes the serving path gives the kernels: every batch bucket at
+# H=64, with I=1 (first layer) and I=64 (the GRU's second layer); then
+# ragged shapes that no block or 16-byte copy divides
+SERVING_SHAPES = [(B, I, 64) for B in (8, 16, 32, 64, 128, 256)
+                  for I in (1, 64)] + [(37, 1, 50), (37, 50, 50)]
 
-    lstm_shapes = [(8, 1, 16), (64, 8, 64), (128, 4, 128), (32, 16, 256)]
-    gru_shapes = [(8, 1, 16), (64, 8, 64), (128, 4, 128)]
-    # the shapes the serving path gives the kernels: every batch bucket at
-    # H=64, with I=1 (first layer) and I=64 (the GRU's second layer); then
-    # ragged shapes that no block divides, for the masked tails
-    extra = [(B, I, 64) for B in (8, 16, 32, 64, 128, 256) for I in (1, 64)]
-    extra += [(37, 1, 50), (37, 50, 50)]
+
+def _layer_case(name, B, I, H, T, dt, rnd):
+    """One layer call on the card: (kernel outputs, plain outputs, plain
+    outputs with fp32 sums)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gru_cell import gru_layer
+    from repro_torch.kernels.lstm_cell import lstm_layer
+
+    if name == "lstm_cell":
+        args = (rnd(T, B, I), rnd(B, H), rnd(B, H), rnd(I, 4 * H),
+                rnd(H, 4 * H), rnd(4 * H))
+        return (lstm_layer(*args), ref.lstm_layer_ref(*args),
+                ref.lstm_layer_ref(*args, fp32_sums=True))
+    args = (rnd(T, B, I), rnd(B, H), rnd(I, 3 * H), rnd(H, 3 * H),
+            rnd(3 * H))
+    return ((gru_layer(*args),), (ref.gru_layer_ref(*args),),
+            (ref.gru_layer_ref(*args, fp32_sums=True),))
+
+
+def check_kernels(seed):
+    """Each layer kernel vs its plain version (the plain cell stepped T
+    times) on the same CUDA tensors, T = 1 and 8, fp32 and bf16: every
+    step's h and the LSTM's last c.  fp32 and T = 1 at TOL; bf16 past one
+    step at LAYER_BF16_TOL, and at TOL against the plain cell with fp32
+    sums.  Returns the max abs error of each kernel at the serving shape
+    (B=256, I=1, H=64, T=8) in fp32."""
+    import torch
+
     serving_err = {}
     gen = torch.Generator().manual_seed(seed)
     for dname in ("float32", "bfloat16"):
@@ -113,33 +141,35 @@ def check_kernels(seed):
             return (torch.randn(*shape, generator=gen) * 0.3).to("cuda", dt)
 
         rows = []
-        for name, shapes in (("lstm_cell", lstm_shapes + extra),
-                             ("gru_cell", gru_shapes + extra)):
+        for name, shapes in (("lstm_cell", LSTM_SHAPES + SERVING_SHAPES),
+                             ("gru_cell", GRU_SHAPES + SERVING_SHAPES)):
             for B, I, H in shapes:
-                if name == "lstm_cell":
-                    args = (rnd(B, I), rnd(B, H), rnd(B, H), rnd(I, 4 * H),
-                            rnd(H, 4 * H), rnd(4 * H))
-                    outs = lstm_cell(*args)
-                    refs = ref.lstm_cell_ref(*args)
-                else:
-                    args = (rnd(B, I), rnd(B, H), rnd(I, 3 * H),
-                            rnd(H, 3 * H), rnd(3 * H))
-                    outs = (gru_cell(*args),)
-                    refs = (ref.gru_cell_ref(*args),)
-                torch.cuda.synchronize()
-                errs = [_max_err(o, r, TOL[dname]) for o, r in zip(outs, refs)]
-                err = max(e for e, _ in errs)
-                ok = all(k for _, k in errs) and all(
-                    o.dtype == dt and o.is_cuda for o in outs)
-                rows.append({"kernel": name, "B": B, "I": I, "H": H,
-                             "max_abs_err": err, "ok": ok})
-                require(ok, f"{name} {dname} B={B} I={I} H={H}: kernel "
-                        f"disagrees with its plain version (max abs err "
-                        f"{err:.3g}, tol {TOL[dname]})")
-                if dname == "float32" and (B, I, H) == (256, 1, 64):
-                    serving_err[name] = err
+                for T in (1, 8):
+                    outs, plain, fused = _layer_case(name, B, I, H, T, dt,
+                                                     rnd)
+                    torch.cuda.synchronize()
+                    tol = TOL[dname] if dname == "float32" or T == 1 \
+                        else LAYER_BF16_TOL
+                    errs = [_max_err(o, r, tol) for o, r in zip(outs, plain)]
+                    errs += [_max_err(o, r, TOL[dname])
+                             for o, r in zip(outs, fused)]
+                    err = max(e for e, _ in errs[:len(outs)])
+                    fused_err = max(e for e, _ in errs[len(outs):])
+                    ok = all(k for _, k in errs) and all(
+                        o.dtype == dt and o.is_cuda and
+                        bool(torch.isfinite(o).all()) for o in outs)
+                    rows.append({"kernel": name, "T": T, "B": B, "I": I,
+                                 "H": H, "max_abs_err": err,
+                                 "max_abs_err_fp32_sums": fused_err,
+                                 "ok": ok})
+                    require(ok, f"{name} {dname} T={T} B={B} I={I} H={H}: "
+                            f"kernel disagrees with its plain version (max "
+                            f"abs err {err:.3g}, tol {tol}; against fp32 "
+                            f"sums {fused_err:.3g}, tol {TOL[dname]})")
+                    if dname == "float32" and (B, I, H, T) == (256, 1, 64, 8):
+                        serving_err[name] = err
         emit({"phase": "kernel_vs_plain", "dtype": dname, "tol": TOL[dname],
-              "cases": rows})
+              "layer_bf16_tol": LAYER_BF16_TOL, "cases": rows})
     return serving_err
 
 
@@ -189,11 +219,14 @@ def check_flash(seed):
 
 
 # --------------------------------------------------------------- phase 3
-def serve_slice(cfg, seed):
+def serve_slice(cfg, seed, launches_per_flush=None):
     """Serve REQUESTS_PER_CONSUMER requests from each of CONSUMERS synthetic
-    CA consumers on the card and on the CPU; returns the card run's
-    launches of the config's cell and mean wall time of a full (max_batch)
-    flush."""
+    CA consumers on the card and on the CPU, then profile one more full
+    (max_batch) flush on the card.  Returns the card run's launches of the
+    config's cell, its flushes, the mean wall time of a full flush and the
+    profile.  With ``launches_per_flush`` the run must have launched the
+    config's cell exactly that many times a flush, and the other cell
+    never."""
     import numpy as np
     import torch
     from repro_torch import serving as sv
@@ -257,10 +290,11 @@ def serve_slice(cfg, seed):
                 for t in tickets), "non-finite or misshaped forecast")
     name = f"{cfg.cell}_cell"
     other = "gru_cell" if cfg.cell == "lstm" else "lstm_cell"
-    expect = st.flushes * cfg.lookback * cfg.n_layers
-    require(counts[name] == expect and counts[other] == 0,
-            f"launch counts {counts}, expected {name}={expect} "
-            f"(= {st.flushes} flushes x {cfg.lookback} x {cfg.n_layers})")
+    if launches_per_flush is not None:
+        expect = st.flushes * launches_per_flush
+        require(counts[name] == expect and counts[other] == 0,
+                f"launch counts {counts}, expected {name}={expect} "
+                f"(= {st.flushes} flushes x {launches_per_flush})")
     worst = 0.0
     for a, b in zip(tickets, cpu_tickets):
         scale = b.hi - b.lo
@@ -269,17 +303,34 @@ def serve_slice(cfg, seed):
                                          + 1e-4 * scale)).max()))
     require(worst <= 1.0, f"card vs CPU engine disagree: worst error is "
             f"{worst:.3g}x the tolerance (rtol 1e-4, atol 1e-4*(hi-lo))")
-    full = st.flushes - len(last)
+    flushes, full = st.flushes, st.flushes - len(last)
     require(full > 0, "no full flush")
     full_wall = (st.busy_s - sum(f.wall_s for f in last)) / full
-    emit({"phase": "serve", "cfg": dataclasses.asdict(cfg),
-          "requests": len(tickets), "consumers": CONSUMERS, "slots": sorted({t.slot for t in tickets}),
-          "flushes": st.flushes, "by_bucket": st.by_bucket,
-          "fill": st.fill(), "launches": counts,
-          "card_vs_cpu_worst_over_tol": worst,
-          "mean_full_flush_wall_ms": full_wall * 1e3,
-          "busy_s": st.busy_s, "run_s": card_s})
-    return counts[name], full_wall
+    served = {"phase": "serve", "cfg": dataclasses.asdict(cfg),
+              "requests": len(tickets), "consumers": CONSUMERS,
+              "slots": sorted({t.slot for t in tickets}),
+              "flushes": flushes, "by_bucket": dict(st.by_bucket),
+              "fill": st.fill(), "launches": counts,
+              "launches_per_flush": counts[name] / flushes,
+              "card_vs_cpu_worst_over_tol": worst,
+              "mean_full_flush_wall_ms": full_wall * 1e3,
+              "busy_s": st.busy_s, "run_s": card_s}
+    # one more full flush under torch.profiler: the first max_batch requests
+    # of the busiest slot again, queued and then flushed at once.  The
+    # profiler slows the host several times over, so the busy share that
+    # counts is its device time over the unprofiled mean full-flush wall.
+    busiest = max(set(t.slot for t in tickets),
+                  key=lambda s: sum(t.slot == s for t in tickets))
+    eng.auto_flush = False
+    for t in [t for t in tickets if t.slot == busiest][:eng.max_batch]:
+        eng.submit(t.consumer_id, t.window)
+    profile = _device_profile(lambda: eng.flush(busiest), 1)
+    if profile["device_ms_per_step"] is not None:
+        profile["device_share_of_mean_full_flush_wall"] = \
+            profile["device_ms_per_step"] / (full_wall * 1e3)
+    emit({**served, "full_flush_profile": profile})
+    return {"launches": counts[name], "flushes": flushes,
+            "full_flush_wall_s": full_wall, "profile": profile}
 
 
 # --------------------------------------------------------------- phase 4
@@ -343,22 +394,120 @@ def _bound(t, peak_flops):
     return t
 
 
-def time_kernels(seed):
-    """Kernel, plain version and the one-call yardstick at the serving
-    shape (B=256, I=1, H=64, fp32), beside the bound from bytes and
-    FLOPs."""
+def _cudnn_layer(cell, wx, wh, b):
+    """cuDNN's whole-sequence call computing the repo's layer: nn.LSTM /
+    nn.GRU with w_ih = wx.T, w_hh = wh.T, b_ih = b, b_hh = 0, the GRU's
+    gates reordered [z|r|h~] -> [r|z|n] (its n gate scales only the hidden
+    part by r, as the repo's h~ does)."""
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.gru_cell import gru_cell
-    from repro_torch.kernels.lstm_cell import lstm_cell
 
-    B, I, H = 256, 1, 64
+    I, GH = wx.shape
+    H = wh.shape[0]
+    if cell == "lstm":
+        mod = torch.nn.LSTM(I, H)
+        perm = torch.arange(GH)
+    else:
+        mod = torch.nn.GRU(I, H)
+        perm = torch.cat([torch.arange(H, 2 * H), torch.arange(H),
+                          torch.arange(2 * H, 3 * H)])
+    mod = mod.to(wx.device)
+    perm = perm.to(wx.device)
+    with torch.no_grad():
+        mod.weight_ih_l0.copy_(wx[:, perm].t())
+        mod.weight_hh_l0.copy_(wh[:, perm].t())
+        mod.bias_ih_l0.copy_(b[perm])
+        mod.bias_hh_l0.zero_()
+    return mod
+
+
+def _layer_bytes_flops(gates, T, B, I, H, itemsize=4):
+    """Each input read once, each output written once (h_seq; the LSTM's
+    c_T and c0 too), and the layer's multiply-adds."""
+    n = T * B * I + B * H + I * gates * H + H * gates * H + gates * H \
+        + T * B * H + (2 * B * H if gates == 4 else 0)
+    return itemsize * n, 2 * T * B * (I + H) * gates * H
+
+
+def time_kernels(seed):
+    """At the serving shape (B=256, T=8, H=64, fp32): each layer kernel, its
+    plain version and cuDNN's call for the same sequence (LSTM I=1; GRU I=1
+    and I=64, the second layer), beside the bound from bytes and FLOPs; the
+    kernel at the other launch plans it takes (rows per block, rows per
+    thread, k-split); and at T = 1 the step wrappers beside
+    torch.lstm_cell / gru_cell."""
+    import torch
+    from repro_torch.kernels import _cuda, ref
+    from repro_torch.kernels.gru_cell import gru_cell, gru_layer
+    from repro_torch.kernels.lstm_cell import lstm_cell, lstm_layer
+
+    B, T, H = 256, 8, 64
     gen = torch.Generator().manual_seed(seed + 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def rnd(*shape):
         return (torch.randn(*shape, generator=gen) * 0.3).to("cuda")
 
     out = {}
+    for key, cell, I in (("lstm_cell", "lstm", 1), ("gru_cell", "gru", 1),
+                         ("gru_cell_i64", "gru", 64)):
+        name, G = f"{cell}_cell", 4 if cell == "lstm" else 3
+        x, h, c = rnd(T, B, I), rnd(B, H), rnd(B, H)
+        w = (rnd(I, G * H), rnd(H, G * H), rnd(G * H))
+        mod = _cudnn_layer(cell, *w)
+        if cell == "lstm":
+            ins, outs = (x, h, c, *w), (torch.empty(T, B, H, device="cuda"),
+                                        torch.empty(B, H, device="cuda"))
+
+            def kernel():
+                return lstm_layer(x, h, c, *w)
+
+            def plain():
+                return ref.lstm_layer_ref(x, h, c, *w)
+
+            def library():
+                return mod(x, (h[None], c[None]))[0]
+        else:
+            ins, outs = (x, h, *w), (torch.empty(T, B, H, device="cuda"),)
+
+            def kernel():
+                return gru_layer(x, h, *w)
+
+            def plain():
+                return ref.gru_layer_ref(x, h, *w)
+
+            def library():
+                return mod(x, h[None])[0]
+        with torch.inference_mode():
+            want = plain()
+            want = want[0] if cell == "lstm" else want
+            require(_max_err(library(), want, 2e-5)[1],
+                    f"cuDNN's nn.{cell.upper()} yardstick does not compute "
+                    "the repo's layer")
+            n_bytes, flops = _layer_bytes_flops(G, T, B, I, H)
+            t = _timed(kernel, plain, library, T=T, I=I, bytes=n_bytes,
+                       flops=flops,
+                       plan=_cuda.cell_plan(name, B, I, H, 4, sms)._asdict())
+            # the kernel at every other plan it takes at this shape,
+            # launched directly (these launches are not the path's)
+            sweep = {}
+            for rows in (1, 2, 4):
+                for rpt in (1, 2):
+                    for ks in (2, 4):
+                        try:
+                            plan = _cuda.cell_plan(name, B, I, H, 4, sms,
+                                                   rows, rpt, ks)
+                        except ValueError:      # not a plan the kernel takes
+                            continue
+                        sweep[f"rows{rows}_rpt{rpt}_ks{ks}"] = time_ms(
+                            lambda: _cuda.launch(name, ins + outs,
+                                                 (T, B, I, H, *plan)),
+                            100, 20)[0]
+            t["plan_sweep_ms"] = sweep
+        out[key] = _bound(t, FP32_FLOPS_PER_S)
+
+    # T = 1: the step wrappers (the layer kernels at one step) against the
+    # library's one-step cells
+    I = 1
     x, h, c = rnd(B, I), rnd(B, H), rnd(B, H)
     wx, wh, b = rnd(I, 4 * H), rnd(H, 4 * H), rnd(4 * H)
     w_ih, w_hh, b_hh = wx.t().contiguous(), wh.t().contiguous(), \
@@ -367,14 +516,12 @@ def time_kernels(seed):
     ref_h, ref_c = ref.lstm_cell_ref(x, h, c, wx, wh, b)
     require(_max_err(lib_h, ref_h, 2e-5)[1] and _max_err(lib_c, ref_c, 2e-5)[1],
             "torch.lstm_cell yardstick does not compute the repo's cell")
-    n_bytes = 4 * (B * I + 2 * B * H + I * 4 * H + H * 4 * H + 4 * H
-                   + 2 * B * H)
-    flops = 2 * B * (I + H) * 4 * H
-    out["lstm_cell"] = _timed(
+    n_bytes, flops = _layer_bytes_flops(4, 1, B, I, H)
+    out["lstm_cell_step"] = _bound(_timed(
         lambda: lstm_cell(x, h, c, wx, wh, b),
         lambda: ref.lstm_cell_ref(x, h, c, wx, wh, b),
         lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b, b_hh),
-        bytes=n_bytes, flops=flops)
+        T=1, I=I, bytes=n_bytes, flops=flops), FP32_FLOPS_PER_S)
 
     gx, gwx, gwh, gb = rnd(B, I), rnd(I, 3 * H), rnd(H, 3 * H), rnd(3 * H)
     # torch.gru_cell orders the gates [r|z|n]; the repo's are [z|r|h~]
@@ -385,15 +532,13 @@ def time_kernels(seed):
     require(_max_err(torch.gru_cell(gx, h, g_ih, g_hh, g_b, g_bhh),
                      ref.gru_cell_ref(gx, h, gwx, gwh, gb), 2e-5)[1],
             "torch.gru_cell yardstick does not compute the repo's cell")
-    out["gru_cell"] = _timed(
+    n_bytes, flops = _layer_bytes_flops(3, 1, B, I, H)
+    out["gru_cell_step"] = _bound(_timed(
         lambda: gru_cell(gx, h, gwx, gwh, gb),
         lambda: ref.gru_cell_ref(gx, h, gwx, gwh, gb),
         lambda: torch.gru_cell(gx, h, g_ih, g_hh, g_b, g_bhh),
-        bytes=4 * (B * I + B * H + I * 3 * H + H * 3 * H + 3 * H + B * H),
-        flops=2 * B * (I + H) * 3 * H)
-    for t in out.values():
-        _bound(t, FP32_FLOPS_PER_S)
-    emit({"phase": "timing", "shape": {"B": B, "I": I, "H": H,
+        T=1, I=I, bytes=n_bytes, flops=flops), FP32_FLOPS_PER_S)
+    emit({"phase": "timing", "shape": {"B": B, "T": T, "H": H,
                                        "dtype": "float32"},
           "median_of": 300, **out})
     return out
@@ -658,21 +803,29 @@ def main():
     # ptxas -v of each kernel compiled in this run (none if the libraries
     # were already built): registers, stack, spills, static shared memory
     ptxas = {n: _cuda.ptxas_report(log) for n, log in _cuda.BUILD_LOG.items()}
+    # the launch plans of the serving path's layers (B=256, H=64, fp32)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {f"{n}_I{I}": _cuda.cell_plan(n, 256, I, 64, 4, sms)._asdict()
+             for n, I in (("lstm_cell", 1), ("gru_cell", 1),
+                          ("gru_cell", 64))}
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count(), "kernel_build_s": build_s,
-          "ptxas": ptxas})
+          "count": torch.cuda.device_count(), "sms": sms,
+          "kernel_build_s": build_s, "serving_plans": plans, "ptxas": ptxas})
 
     # ---- phase 2: each kernel against its plain version on the card
     errs = check_kernels(args.seed)
     errs["flash_attention"] = check_flash(args.seed)
 
-    # ---- phase 3: the serving slice, LSTM then 2-layer GRU
+    # ---- phase 3: the serving slice, LSTM then 2-layer GRU: one launch of
+    # the layer kernel per layer per flush
     launches, wall = {}, {}
     for cfg in (ForecasterConfig(), ForecasterConfig(cell="gru", n_layers=2)):
         name = f"{cfg.cell}_cell"
-        launches[name], wall[name] = serve_slice(cfg, args.seed)
+        served = serve_slice(cfg, args.seed, launches_per_flush=cfg.n_layers)
+        launches[name] = served["launches"]
+        wall[name] = served["full_flush_wall_s"]
         require(launches[name] > 0, f"{name} never launched on its path")
 
     # ---- phase 4: times at the serving shape, and flash at the LM shape
@@ -687,6 +840,23 @@ def main():
     replaces = {"lstm_cell": "src/repro/kernels/lstm_cell.py:24",
                 "gru_cell": "src/repro/kernels/gru_cell.py:17",
                 "flash_attention": "src/repro/kernels/flash_attention.py:28"}
+
+    def extra(n):
+        """The cells' line: the layer at T=8 (the GRU's first layer), with
+        the second GRU layer and the T = 1 step beside it."""
+        if n not in wall:
+            return {}
+        more = {"shape": {"B": 256, "T": 8, "I": 1, "H": 64,
+                          "dtype": "float32"},
+                "library": f"torch.nn.{n[:-5].upper()} (cuDNN)",
+                "engine_full_flush_wall_ms": wall[n] * 1e3,
+                "step_ms": times[f"{n}_step"]["ms"],
+                "step_library_ms": times[f"{n}_step"]["library_ms"]}
+        if n == "gru_cell":
+            more["second_layer"] = {k: times["gru_cell_i64"][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_share")}
+        return more
+
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",
          "replaces": replaces[n], "launches": launches[n],
@@ -694,9 +864,7 @@ def main():
          "plain_ms": times[n]["plain_ms"], "bound_ms": times[n]["bound_ms"],
          "bound_by": times[n]["bound_by"],
          "bound_share": times[n]["bound_share"],
-         "library_ms": times[n]["library_ms"],
-         **({"engine_full_flush_wall_ms": wall[n] * 1e3} if n in wall
-            else {})}
+         "library_ms": times[n]["library_ms"], **extra(n)}
         for n in ops.KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

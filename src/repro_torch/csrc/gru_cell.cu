@@ -1,133 +1,164 @@
-// Fused GRU cell for Hopper (sm_90a): one time step of the forecaster's
-// recurrence, writing h' from x, h and the gate weights.
+// GRU layer for Hopper (sm_90a): the fused GRU cell scanned over a whole
+// time-major sequence in one launch, writing every step's h.
 //
 // Replaces the TPU kernel src/repro/kernels/gru_cell.py::_gru_kernel
 // (wrapper gru_cell), which the JAX package reaches through
-// kernels/ops.py::gru_cell_fused.  Same function: zx = x.Wx + b and
-// zh = h.Wh with fp32 accumulation and gates [z|r|h~] along the columns of
-// wx (I, 3H) and wh (H, 3H), no hidden bias; z = sig(zx_z + zh_z),
-// r = sig(zx_r + zh_r), h~ = tanh(zx_h + r * zh_h), h' = z h + (1 - z) h~.
-// Only h' is written, in the input dtype.
+// kernels/ops.py::gru_cell_fused, one step per call, and scans over the
+// look-back with lax.scan (src/repro/models/forecaster.py:94-119).  Same
+// function at each step: zx = x.Wx + b and zh = h.Wh with fp32
+// accumulation and gates [z|r|h~] along the columns of wx (I, 3H) and
+// wh (H, 3H), no hidden bias; z = sig(zx_z + zh_z), r = sig(zx_r + zh_r),
+// h~ = tanh(zx_h + r * zh_h), h' = z h + (1 - z) h~.  h' is rounded to the
+// input dtype after every step, as the step's output is, so the layer is
+// the scan of the step.  At T = 1 it is the step.
 //
-// What bounds it on an H100: at the serving shape (B=256, I=1, H=64, fp32)
-// one step moves about 0.18 MB and does about 6.4 MFLOP, about 0.05 us of
-// HBM time at 3.35 TB/s or about 0.10 us of fp32 non-tensor work at
-// 67 TFLOP/s.  A kernel launch costs several microseconds more, so the
-// serving forward is bound by launches and latency, not by the cell; the
-// remedies (one persistent kernel for the recurrence and the head, or a
-// CUDA graph per batch bucket) are later work.
+// What bounds it on an H100: at the serving shape (T=8, B=256, H=64,
+// fp32) the first layer (I=1) does 51 MFLOP, about 0.76 us at 67 TFLOP/s,
+// the second (I=64) 101 MFLOP, about 1.5 us; their bytes take 0.1-0.2 us of
+// HBM time.  The steps are serial, so a launch costs T times the latency
+// of one step on one SM; as in csrc/lstm_cell.cu the weights come on chip
+// once per launch, h stays in shared memory between steps and the next x
+// is loaded while a step computes.
 //
-// Design: as csrc/lstm_cell.cu.  One thread per output (b, j), j fastest so
-// neighbouring threads read neighbouring columns of wx and wh; the block's
-// rows of [x | h] staged in shared memory as fp32; six fp32 sums in
-// registers (the x part and the h part of each gate stay apart because the
-// reset gate scales only the h part of the candidate); both tails masked.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+// Design: as csrc/lstm_cell.cu (see csrc/recurrent_layer.cuh for the
+// layout, the weight copy and the cluster).  The x part and the h part of
+// each gate are summed apart, since the reset gate scales only the h part
+// of the candidate: six fp32 sums per row, in registers.
+#include "recurrent_layer.cuh"
 
 namespace {
 
-constexpr int kThreadsJ = 64;  // threads along the hidden axis
-constexpr int kRows = 4;       // batch rows per block
+constexpr int kGates = 3;
 
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
+template <typename T, int RPT, int KS>
+__global__ void __launch_bounds__(layer::kMaxThreads, 1)
+    gru_layer_kernel(const T* __restrict__ x_seq, const T* __restrict__ h0,
+                     const T* __restrict__ wx, const T* __restrict__ wh,
+                     const T* __restrict__ b, T* __restrict__ h_seq,
+                     layer::Dims d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  LAYER_STAMP(0);
+  const layer::Layout<T, kGates> L(d);
+  const int row0 = blockIdx.x * d.rows;
+  const int j0 = blockIdx.y * L.hc;
+  const int nvalid = min(L.hc, d.H - j0);
+  layer::prologue<T, kGates>(d, L, smem, x_seq, h0, wx, wh, b, row0, j0,
+                             nvalid);
+  const T* W = reinterpret_cast<const T*>(smem + L.w_off);
+  const T* bias = reinterpret_cast<const T*>(smem + L.b_off);
+  float* rowbuf = reinterpret_cast<float*>(smem + L.rowbuf_off);
 
-template <typename T>
-__global__ void gru_cell_kernel(const T* __restrict__ x,
-                                const T* __restrict__ h,
-                                const T* __restrict__ wx,
-                                const T* __restrict__ wh,
-                                const T* __restrict__ b,
-                                T* __restrict__ h_out,
-                                int B, int I, int H) {
-  extern __shared__ float rows[];  // kRows x (I + H), each row [x | h]
-  const int K = I + H;
-  const int row0 = blockIdx.y * kRows;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int e = tid; e < kRows * K; e += blockDim.x * blockDim.y) {
-    const int r = e / K;
-    const int k = e - r * K;
-    const int bb = row0 + r;
-    float v = 0.0f;
-    if (bb < B) {
-      v = k < I ? load(x + static_cast<size_t>(bb) * I + k)
-                : load(h + static_cast<size_t>(bb) * H + (k - I));
+  LAYER_STAMP(6);
+  const layer::Place at = layer::Place::of<RPT, KS>(d, L.hc, nvalid);
+  const int j = j0 + at.jl;
+
+  layer::NextX<T> next_x;
+  for (int t = 0; t < d.T; ++t) {
+    const float* cur = rowbuf + (t & 1) * d.rows * L.kw;
+    float* nxt = rowbuf + ((t + 1) & 1) * d.rows * L.kw;
+    next_x.load_step(d, x_seq, t + 1, row0);
+    LAYER_STAMP(8 + 4 * t);
+    float ax[kGates][RPT], ah[kGates][RPT];
+#pragma unroll
+    for (int g = 0; g < kGates; ++g) {
+      // the bias enters once, in lane 0's share
+      const float bg =
+          at.ks == 0 ? layer::load(bias + g * L.hc + at.jl) : 0.0f;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        ax[g][r] = bg;
+        ah[g][r] = 0.0f;
+      }
     }
-    rows[e] = v;
+    const float* rows = cur + at.r_read * L.kw;
+    layer::accumulate<T, kGates, RPT, KS>(rows, L.kw, W + at.jl, L.hc, L.ws,
+                                          0, L.i4, at.ks, ax);
+    layer::accumulate<T, kGates, RPT, KS>(rows, L.kw, W + at.jl, L.hc, L.ws,
+                                          L.i4, L.kw, at.ks, ah);
+    layer::reduce_lanes<kGates, RPT, KS>(ax);
+    layer::reduce_lanes<kGates, RPT, KS>(ah);
+    LAYER_STAMP(9 + 4 * t);
+    if (at.finishes) {
+      float zx[kGates], zh[kGates];
+      layer::pick(ax, at.ks, zx);
+      layer::pick(ah, at.ks, zh);
+      const float z = layer::sigmoid(zx[0] + zh[0]);
+      const float rg = layer::sigmoid(zx[1] + zh[1]);
+      const float h_tilde = tanhf(zx[2] + rg * zh[2]);
+      const float h_prev = cur[(at.r0 + at.ks) * L.kw + L.i4 + j];
+      const float h_new =
+          layer::round_to(z * h_prev + (1.0f - z) * h_tilde, h_seq);
+      const int row = row0 + at.r0 + at.ks;
+      if (row < d.B) {
+        layer::store(h_seq + (static_cast<size_t>(t) * d.B + row) * d.H + j,
+                     h_new);
+      }
+      if (t + 1 < d.T) {
+        layer::publish_h(d, nxt, (at.r0 + at.ks) * L.kw + L.i4 + j, h_new);
+      }
+    }
+    LAYER_STAMP(10 + 4 * t);
+    if (t + 1 < d.T) {
+      next_x.put(d, nxt, L.kw);
+      layer::step_barrier(d);
+      LAYER_STAMP(11 + 4 * t);
+    }
   }
-  __syncthreads();
+}
 
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int bb = row0 + threadIdx.y;
-  if (j >= H || bb >= B) return;
-  const float* row = rows + threadIdx.y * K;
-  const size_t G = static_cast<size_t>(3) * H;
-
-  float xz = load(b + j);
-  float xr = load(b + H + j);
-  float xn = load(b + 2 * H + j);
-  for (int k = 0; k < I; ++k) {
-    const float v = row[k];
-    const T* w = wx + k * G + j;
-    xz += v * load(w);
-    xr += v * load(w + H);
-    xn += v * load(w + 2 * H);
+template <typename T, int RPT, int KS>
+int launch_plan(const void* x_seq, const void* h0, const void* wx,
+                const void* wh, const void* b, void* h_seq,
+                const layer::Dims& d, void* stream) {
+  static std::atomic<int> smem_opted_in{48 * 1024};
+  const layer::Layout<T, kGates> L(d);
+  if (layer::bad_dims(d, RPT, KS, L.hc)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  float hz = 0.0f, hr = 0.0f, hn = 0.0f;
-  for (int k = 0; k < H; ++k) {
-    const float v = row[I + k];
-    const T* w = wh + k * G + j;
-    hz += v * load(w);
-    hr += v * load(w + H);
-    hn += v * load(w + 2 * H);
-  }
-
-  const float z = sigmoid(xz + hz);
-  const float r = sigmoid(xr + hr);
-  const float h_tilde = tanhf(xn + r * hn);
-  store(h_out + static_cast<size_t>(bb) * H + j,
-        z * row[I + j] + (1.0f - z) * h_tilde);
+  return layer::launch(
+      gru_layer_kernel<T, RPT, KS>, &smem_opted_in, L.bytes, d,
+      static_cast<cudaStream_t>(stream), static_cast<const T*>(x_seq),
+      static_cast<const T*>(h0), static_cast<const T*>(wx),
+      static_cast<const T*>(wh), static_cast<const T*>(b),
+      static_cast<T*>(h_seq), d);
 }
 
 template <typename T>
-int launch(const void* x, const void* h, const void* wx, const void* wh,
-           const void* b, void* h_out, int B, int I, int H, void* stream) {
-  const dim3 block(kThreadsJ, kRows);
-  const dim3 grid((H + kThreadsJ - 1) / kThreadsJ, (B + kRows - 1) / kRows);
-  const size_t smem = sizeof(float) * kRows * (I + H);
-  gru_cell_kernel<T><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(h),
-      static_cast<const T*>(wx), static_cast<const T*>(wh),
-      static_cast<const T*>(b), static_cast<T*>(h_out), B, I, H);
-  return static_cast<int>(cudaGetLastError());
+int launch(const void* x_seq, const void* h0, const void* wx, const void* wh,
+           const void* b, void* h_seq, int T_, int B, int I, int H,
+           int cluster, int rows, int rows_per_thread, int k_split,
+           int threads, void* stream) {
+  const layer::Dims d{T_, B, I, H, cluster, rows, threads};
+  return layer::dispatch(rows_per_thread, k_split, [&](auto rpt, auto ks) {
+    return launch_plan<T, decltype(rpt)::value, decltype(ks)::value>(
+        x_seq, h0, wx, wh, b, h_seq, d, stream);
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-int repro_gru_cell_f32(const void* x, const void* h, const void* wx,
-                       const void* wh, const void* b, void* h_out, int B,
-                       int I, int H, void* stream) {
-  return launch<float>(x, h, wx, wh, b, h_out, B, I, H, stream);
+// x_seq (T, B, I), h0 (B, H), wx (I, 3H), wh (H, 3H), b (3H) in; h_seq
+// (T, B, H) out; then the sizes and the launch plan of
+// kernels/_cuda.py::cell_plan
+int repro_gru_cell_f32(const void* x_seq, const void* h0, const void* wx,
+                       const void* wh, const void* b, void* h_seq, int T,
+                       int B, int I, int H, int cluster, int rows,
+                       int rows_per_thread, int k_split, int threads,
+                       void* stream) {
+  return launch<float>(x_seq, h0, wx, wh, b, h_seq, T, B, I, H, cluster, rows,
+                       rows_per_thread, k_split, threads, stream);
 }
 
-int repro_gru_cell_bf16(const void* x, const void* h, const void* wx,
-                        const void* wh, const void* b, void* h_out, int B,
-                        int I, int H, void* stream) {
-  return launch<__nv_bfloat16>(x, h, wx, wh, b, h_out, B, I, H, stream);
+int repro_gru_cell_bf16(const void* x_seq, const void* h0, const void* wx,
+                        const void* wh, const void* b, void* h_seq, int T,
+                        int B, int I, int H, int cluster, int rows,
+                        int rows_per_thread, int k_split, int threads,
+                        void* stream) {
+  return launch<__nv_bfloat16>(x_seq, h0, wx, wh, b, h_seq, T, B, I, H,
+                               cluster, rows, rows_per_thread, k_split,
+                               threads, stream);
 }
 
 const char* repro_error_string(int err) {

@@ -3,14 +3,14 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
 use, by its own ``nvcc`` process (all of them started together), into
 ``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root.  The
-hash covers the source and the compiler flags, so an edited kernel is
-rebuilt and an unchanged one is reused.  The libraries are loaded with
-``ctypes`` with each entry's own argument types (``_ARGTYPES``): pointers
-and the stream go in as ``c_void_p``, sizes and flags as ``c_int``, scales
-as ``c_float``, and every entry returns ``cudaGetLastError()`` after its
-launch.  ``ptxas -v`` reports each kernel's registers, shared memory and
-spills; a build keeps that report in ``BUILD_LOG`` (:func:`ptxas_report`
-parses it).
+hash covers the source, the headers of ``csrc/`` and the compiler flags, so
+an edited kernel is rebuilt and an unchanged one is reused.  The libraries
+are loaded with ``ctypes`` with each entry's own argument types
+(``_ARGTYPES``): pointers and the stream go in as ``c_void_p``, sizes and
+flags as ``c_int``, scales as ``c_float``, and every entry returns
+``cudaGetLastError()`` after its launch.  ``ptxas -v`` reports each
+kernel's registers, shared memory and spills; a build keeps that report in
+``BUILD_LOG`` (:func:`ptxas_report` parses it).
 
 Nothing here runs when the module is imported: a machine without ``nvcc``
 or a card imports it, and only a launch on a CUDA tensor needs them.
@@ -18,6 +18,7 @@ or a card imports it, and only a launch on a CUDA tensor needs them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -26,7 +27,7 @@ import subprocess
 import threading
 from collections import Counter
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -41,8 +42,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # then its sizes, flags and scales; the stream follows them all
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "lstm_cell": [_P] * 8 + [_I] * 3,                   # B, I, H
-    "gru_cell": [_P] * 6 + [_I] * 3,                    # B, I, H
+    # T, B, I, H, then the CellPlan: cluster, rows, rows_per_thread,
+    # k_split, threads
+    "lstm_cell": [_P] * 8 + [_I] * 9,
+    "gru_cell": [_P] * 6 + [_I] * 9,
     # B, S, Hq, Hkv, hd, window; scale
     "flash_attention": [_P] * 4 + [_I] * 6 + [_F],
 }
@@ -69,6 +72,8 @@ def find_nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -152,22 +157,113 @@ def ptxas_report(log: str) -> List[dict]:
     return out
 
 
-# shared memory of one block: 4 rows of [x | h] in fp32, within the 48 KB a
-# block gets without opting in
-MAX_IN_PLUS_HIDDEN = 48 * 1024 // (4 * 4)
+# The recurrent-layer kernels (csrc/recurrent_layer.cuh) hold a block's
+# weights in shared memory; where one block cannot, a cluster of blocks
+# splits the hidden columns.  The range of shapes is what 8 blocks hold.
+SMEM_LIMIT = 232448          # dynamic shared memory one sm_90 block opts into
+CLUSTERS = (1, 2, 4, 8)      # blocks splitting the columns; 8 is portable
+MAX_ROWS = 4                 # batch rows per block
+X_REGS = 4                   # x values a thread carries to the next step
+MAX_THREADS = 512            # per block (__launch_bounds__ of the kernels)
+GATES = {"lstm_cell": 4, "gru_cell": 3}
+ROWS_PER_THREAD = 2          # batch rows of one thread (the kernels take 1, 2)
+K_SPLIT = 4                  # lanes sharing a column's sums (they take 2, 4)
 
 
-def cell_dims(name: str, x: torch.Tensor,
-              h: torch.Tensor) -> Tuple[int, int, int]:
-    """(B, I, H) of a cell call, raising outside the kernels' range."""
-    if x.dim() != 2 or h.dim() != 2:
-        raise ValueError(f"{name}: x and h must be 2-D, got "
-                         f"{tuple(x.shape)} and {tuple(h.shape)}")
-    (B, I), H = x.shape, h.shape[-1]
-    if B < 1 or H < 1 or I + H > MAX_IN_PLUS_HIDDEN:
-        raise ValueError(f"{name}: B={B}, I={I}, H={H} outside the kernel's "
-                         f"range (B, H >= 1, I + H <= {MAX_IN_PLUS_HIDDEN})")
-    return B, I, H
+class CellPlan(NamedTuple):
+    """How a layer kernel is launched: ``cluster`` blocks split the hidden
+    columns, each owns ``rows`` batch rows, a thread ``rows_per_thread`` of
+    them; ``k_split`` lanes share a column's sums over k (and each finishes
+    at most one row); ``threads`` per block."""
+    cluster: int
+    rows: int
+    rows_per_thread: int
+    k_split: int
+    threads: int
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _columns(H: int, cluster: int) -> int:
+    return H if cluster == 1 else _round_up(-(-H // cluster), 8)
+
+
+def cell_smem_bytes(gates: int, I: int, H: int, cluster: int, rows: int,
+                    itemsize: int) -> int:
+    """Dynamic shared memory of one block (``layer::Layout`` in
+    csrc/recurrent_layer.cuh): the copy's mbarrier, W (kw rows of
+    gates * hc, padded to a stride of 16 mod 64 bytes) and the bias in the
+    input dtype, two fp32 row buffers of [x | h]."""
+    hc, kw = _columns(H, cluster), _round_up(I, 4) + _round_up(H, 4)
+    ws = gates * hc + (16 - gates * hc * itemsize) % 64 // itemsize
+    return (16 + kw * ws * itemsize + _round_up(gates * hc * itemsize, 16)
+            + 4 * 2 * rows * kw)
+
+
+def _cluster(gates: int, I: int, H: int, itemsize: int):
+    """The fewest blocks whose shared memory holds the weights, or None."""
+    for cluster in CLUSTERS:
+        if cell_smem_bytes(gates, I, H, cluster, MAX_ROWS,
+                           itemsize) <= SMEM_LIMIT:
+            return cluster
+    return None
+
+
+def cell_dims(name: str, x_seq: torch.Tensor,
+              h: torch.Tensor) -> Tuple[int, int, int, int]:
+    """(T, B, I, H) of a layer call, raising outside the kernels' range:
+    T, B, I, H >= 1 and weights that 8 blocks' shared memory holds (in fp32
+    H <= 256 at any I <= 64 for both cells)."""
+    if x_seq.dim() != 3 or h.dim() != 2:
+        raise ValueError(f"{name}: x_seq must be 3-D (T, B, I) and h 2-D, "
+                         f"got {tuple(x_seq.shape)} and {tuple(h.shape)}")
+    (T, B, I), H = x_seq.shape, h.shape[-1]
+    itemsize = 2 if x_seq.dtype == torch.bfloat16 else 4
+    if (min(T, B, I, H) < 1 or MAX_ROWS * I > X_REGS * MAX_THREADS
+            or _cluster(GATES[name], I, H, itemsize) is None):
+        raise ValueError(
+            f"{name}: T={T}, B={B}, I={I}, H={H} outside the kernel's range "
+            f"(T, B, I, H >= 1, I <= {X_REGS * MAX_THREADS // MAX_ROWS}, "
+            f"and the weights within {max(CLUSTERS)} blocks' shared memory "
+            f"of {SMEM_LIMIT} bytes each)")
+    return T, B, I, H
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def cell_plan(name: str, B: int, I: int, H: int, itemsize: int, sms: int,
+              rows: int = 0, rows_per_thread: int = 0,
+              k_split: int = 0) -> CellPlan:
+    """The launch plan of a layer call (sizes from :func:`cell_dims`, the
+    input dtype's ``itemsize``) on a card of ``sms`` SMs: the fewest cluster
+    blocks that hold the weights; as few rows a block as keep one wave of
+    blocks on the SMs, at most ``MAX_ROWS``; ``ROWS_PER_THREAD`` of them a
+    thread; ``K_SPLIT`` lanes a column, 2 where 4 would pass
+    ``MAX_THREADS``; and the threads that cover the block's columns and
+    rows.  ``rows``, ``rows_per_thread`` and ``k_split`` replace the
+    choice, for measuring the others (``chip_smoke.py`` phase 4)."""
+    cluster = _cluster(GATES[name], I, H, itemsize)
+    hc = _columns(H, cluster)
+    if not rows:
+        need = -(-B * cluster // sms)
+        rows = min(MAX_ROWS, 1 << max(0, need - 1).bit_length())
+    rpt = rows_per_thread or min(rows, ROWS_PER_THREAD)
+    ks = k_split or (K_SPLIT if hc * K_SPLIT * (rows // rpt) <= MAX_THREADS
+                     else 2)
+    threads = max(hc * ks * (rows // rpt), -(-rows * I // X_REGS), 32)
+    plan = CellPlan(cluster, rows, rpt, ks, _round_up(threads, 32))
+    if (rows > MAX_ROWS or rows % rpt or rpt not in (1, 2)
+            or ks not in (2, 4) or plan.threads > MAX_THREADS):
+        raise ValueError(f"{name}: launch plan {plan} outside the kernel's "
+                         "range")
+    return plan
 
 
 def check_inputs(name: str, tensors: Sequence[torch.Tensor],

@@ -1,8 +1,10 @@
 """Entry points that route model code through the CUDA kernels.
 
-``lstm_cell_fused`` / ``gru_cell_fused`` take the forecaster's per-layer
-param dict ``{"wx", "wh", "b"}``; ``flash_attention`` takes (B, S, H, hd)
-q, k, v, as ``models/attention.py`` calls it.
+``lstm_layer_fused`` / ``gru_layer_fused`` (a whole time-major sequence, one
+launch) and ``lstm_cell_fused`` / ``gru_cell_fused`` (one step, the layer
+kernel at ``T = 1``) take the forecaster's per-layer param dict
+``{"wx", "wh", "b"}``; ``flash_attention`` takes (B, S, H, hd) q, k, v, as
+``models/attention.py`` calls it.
 On the CPU they compute the plain versions; on CUDA tensors they launch the
 hand-written kernels (built at first use, see :mod:`._cuda`) or raise, with
 no fallback.  The kernels are forward only: on a CUDA tensor that autograd
@@ -18,11 +20,21 @@ from typing import Dict
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.gru_cell import gru_cell
-from repro_torch.kernels.lstm_cell import lstm_cell
+from repro_torch.kernels.gru_cell import gru_cell, gru_layer
+from repro_torch.kernels.lstm_cell import lstm_cell, lstm_layer
 
 KERNELS = _cuda.KERNELS
 build = _cuda.build
+
+
+def lstm_layer_fused(x_seq, h0, c0, p):
+    """(x_seq (T, B, I), h0, c0, layer params) -> (h_seq (T, B, H), c_T)."""
+    return lstm_layer(x_seq, h0, c0, p["wx"], p["wh"], p["b"])
+
+
+def gru_layer_fused(x_seq, h0, p):
+    """(x_seq (T, B, I), h0, layer params) -> h_seq (T, B, H)."""
+    return gru_layer(x_seq, h0, p["wx"], p["wh"], p["b"])
 
 
 def lstm_cell_fused(x_t, h, c, p):

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the CUDA kernels: the fused recurrent cells and
-causal flash attention.
+"""Plain PyTorch versions of the CUDA kernels: the fused recurrent cells, the
+recurrent layers (the cells scanned over a time-major sequence) and causal
+flash attention.
 
 They are the correctness ground truth for the CUDA kernels (``csrc/``) and
 what the kernel wrappers compute for tensors on the CPU; the counterpart of
@@ -31,6 +32,40 @@ def gru_cell_ref(x, h, wx, wh, b):
     r = torch.sigmoid(zx[..., H:2 * H] + zh[..., H:2 * H])
     h_tilde = torch.tanh(zx[..., 2 * H:] + r * zh[..., 2 * H:])
     return z * h + (1.0 - z) * h_tilde
+
+
+def lstm_layer_ref(x_seq, h0, c0, wx, wh, b, *, fp32_sums=False):
+    """The LSTM cell scanned over time.  x_seq: (T, B, I) time-major; h0, c0:
+    (B, H).  Returns (h_seq (T, B, H), c_T).  Each step's h and c come out in
+    the input dtype, so the carried state is rounded every step.  With
+    ``fp32_sums`` a step computes in fp32 from the inputs' values and only
+    its h and c are rounded: the function of the fused kernels (and of the
+    JAX package's Pallas cell), which differs from the plain cell in bf16."""
+    dt, h, c, hs = h0.dtype, h0, c0, []
+    w = [t.float() for t in (wx, wh, b)] if fp32_sums else (wx, wh, b)
+    for x_t in x_seq:
+        if fp32_sums:
+            h, c = lstm_cell_ref(x_t.float(), h.float(), c.float(), *w)
+            h, c = h.to(dt), c.to(dt)
+        else:
+            h, c = lstm_cell_ref(x_t, h, c, *w)
+        hs.append(h)
+    return torch.stack(hs), c
+
+
+def gru_layer_ref(x_seq, h0, wx, wh, b, *, fp32_sums=False):
+    """The GRU cell scanned over time.  x_seq: (T, B, I); h0: (B, H).
+    Returns h_seq (T, B, H), each step rounded to the input dtype;
+    ``fp32_sums`` as in :func:`lstm_layer_ref`."""
+    dt, h, hs = h0.dtype, h0, []
+    w = [t.float() for t in (wx, wh, b)] if fp32_sums else (wx, wh, b)
+    for x_t in x_seq:
+        if fp32_sums:
+            h = gru_cell_ref(x_t.float(), h.float(), *w).to(dt)
+        else:
+            h = gru_cell_ref(x_t, h, *w)
+        hs.append(h)
+    return torch.stack(hs)
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):

@@ -9,9 +9,11 @@ layouts, ``{"layers": [{"wx", "wh", "b"}], "head": {"w", "b"}}``, with
 ``wx (I, G*H)``, ``wh (H, G*H)``, ``b (G*H,)``, gates ``[i|f|g|o]`` (LSTM)
 or ``[z|r|h~]`` (GRU) and no hidden bias.  They stay arguments, so the
 serving registry can swap a whole tree at once.  ``cell_impl="kernel"``
-steps through the fused CUDA cells (``kernels/lstm_cell.py``,
-``kernels/gru_cell.py``), ``cell_impl="torch"`` through their plain versions
-(``kernels/ref.py``).
+runs each layer over the look-back in one call of the fused CUDA layer
+(``kernels/lstm_cell.py::lstm_layer``, ``kernels/gru_cell.py::gru_layer``):
+``n_layers`` launches per forecast.  ``cell_impl="torch"`` steps through the
+plain cells one time step at a time (``kernels/ref.py::lstm_layer_ref``,
+``gru_layer_ref``), so the two routes stay independent on the card.
 """
 from __future__ import annotations
 
@@ -22,14 +24,13 @@ from torch import nn
 
 from repro_torch.configs.base import ForecasterConfig
 from repro_torch.kernels import ref
-from repro_torch.kernels.gru_cell import gru_cell
-from repro_torch.kernels.lstm_cell import lstm_cell
+from repro_torch.kernels.gru_cell import gru_layer
+from repro_torch.kernels.lstm_cell import lstm_layer
 from repro_torch.models.layers import dense_init, tree_from_numpy
 
-# cell_impl -> (LSTM step, GRU step): the fused CUDA cells, or their plain
-# versions
-CELL_IMPLS = {"kernel": (lstm_cell, gru_cell),
-              "torch": (ref.lstm_cell_ref, ref.gru_cell_ref)}
+# "kernel": one fused CUDA layer call per layer; "torch": the plain cells,
+# step by step (on the CPU both compute the plain cells)
+CELL_IMPLS = ("kernel", "torch")
 
 
 # ------------------------------------------------------------------ init
@@ -98,25 +99,20 @@ def forecast(params, x, cfg: ForecasterConfig, cell_impl: str = "kernel"):
     """x: (B, L, input_dim) -> (B, horizon)."""
     if cell_impl not in CELL_IMPLS:
         raise ValueError(
-            f"cell_impl={cell_impl!r}; pick from {tuple(CELL_IMPLS)}")
-    lstm_step, gru_step = CELL_IMPLS[cell_impl]
+            f"cell_impl={cell_impl!r}; pick from {CELL_IMPLS}")
     B, H = x.shape[0], cfg.hidden_dim
-    # time-major and contiguous, so every step's x_t is a contiguous (B, I)
+    # time-major and contiguous: the layer's x_seq
     h_seq = x.transpose(0, 1).contiguous()
-    n_layers = len(params["layers"])
-    for l, p in enumerate(params["layers"]):
-        h = torch.zeros((B, H), dtype=x.dtype, device=x.device)
-        c = torch.zeros_like(h)
-        hs = []
-        for t in range(h_seq.shape[0]):
-            if cfg.cell == "lstm":
-                h, c = lstm_step(h_seq[t], h, c, p["wx"], p["wh"], p["b"])
-            else:
-                h = gru_step(h_seq[t], h, p["wx"], p["wh"], p["b"])
-            hs.append(h)
-        if l + 1 < n_layers:
-            h_seq = torch.stack(hs)                     # (L, B, H)
-    return torch.matmul(h, params["head"]["w"]) + params["head"]["b"]
+    for p in params["layers"]:
+        h0 = torch.zeros((B, H), dtype=x.dtype, device=x.device)
+        w = (p["wx"], p["wh"], p["b"])
+        if cfg.cell == "lstm":
+            layer = lstm_layer if cell_impl == "kernel" else ref.lstm_layer_ref
+            h_seq, _ = layer(h_seq, h0, h0, *w)
+        else:
+            layer = gru_layer if cell_impl == "kernel" else ref.gru_layer_ref
+            h_seq = layer(h_seq, h0, *w)                # (L, B, H)
+    return torch.matmul(h_seq[-1], params["head"]["w"]) + params["head"]["b"]
 
 
 class Forecaster(nn.Module):

@@ -20,6 +20,11 @@ from repro_torch.models import forecaster  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# a layer past one step in bf16: the plain cell rounds its two products and
+# their sum to bf16, the kernel sums in fp32, and the recurrence carries the
+# difference (0.138 seen at H=256 with weights of std 0.3, T=8); against the
+# plain cell with fp32 sums, the kernel's own function, TOL holds
+LAYER_TOL = {torch.float32: 2e-5, torch.bfloat16: 0.2}
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 
@@ -58,6 +63,91 @@ def test_kernels_match_plain(cuda, B, I, H, dt):
                                    atol=TOL[dt])
 
 
+def _layer_args(g, dev, dt, T, B, I, H, gates):
+    r = lambda *s: _rand(g, dev, dt, *s)  # noqa: E731
+    return (r(T, B, I), r(B, H), r(B, H), r(I, gates * H), r(H, gates * H),
+            r(gates * H))
+
+
+@pytest.mark.parametrize("T", [1, 8])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("B,I,H", [
+    (37, 1, 50), (37, 50, 50),        # ragged: no block or copy divides them
+    (256, 1, 64), (256, 64, 64),      # the serving shapes: cluster 1
+    (128, 4, 128),                    # LSTM fp32: cluster 2
+    (32, 16, 256),                    # GRU fp32: 4, LSTM fp32: 8, bf16: 4, 2
+    (32, 64, 256),                    # the widest x of the range
+    (64, 4, 160),                     # bf16: 2 lanes a column; GRU fp32: 2
+])
+def test_layers_match_plain(cuda, B, I, H, dt, T):
+    """Each layer kernel against its plain version (the plain cell stepped T
+    times): every step's h, and the LSTM's last c; one launch each."""
+    g = torch.Generator().manual_seed(B * 1000 + I * 10 + H + T)
+    x, h, c, wx, wh, b = _layer_args(g, cuda, dt, T, B, I, H, 4)
+    ops.reset_launch_counts()
+    got = ops.lstm_layer(x, h, c, wx, wh, b)
+    want = ref.lstm_layer_ref(x, h, c, wx, wh, b)
+    fused = ref.lstm_layer_ref(x, h, c, wx, wh, b, fp32_sums=True)
+    x, h, _, wx, wh, b = _layer_args(g, cuda, dt, T, B, I, H, 3)
+    got_g = ops.gru_layer(x, h, wx, wh, b)
+    want_g = ref.gru_layer_ref(x, h, wx, wh, b)
+    fused_g = ref.gru_layer_ref(x, h, wx, wh, b, fp32_sums=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"lstm_cell": 1, "gru_cell": 1,
+                                   "flash_attention": 0}
+    tol = LAYER_TOL[dt] if T > 1 else TOL[dt]
+    for a, w, f in ((got[0], want[0], fused[0]), (got[1], want[1], fused[1]),
+                    (got_g, want_g, fused_g)):
+        assert a.dtype == dt and a.shape == w.shape and a.is_cuda
+        torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(a.float(), f.float(), rtol=TOL[dt],
+                                   atol=TOL[dt])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=str)
+def test_layer_at_one_step_is_the_step(cuda, dt):
+    """The step wrappers are the layer kernels at T = 1: the same bits."""
+    g = torch.Generator().manual_seed(11)
+    x, h, c, wx, wh, b = _layer_args(g, cuda, dt, 1, 256, 1, 64, 4)
+    h1, c1 = ops.lstm_cell_fused(x[0], h, c, {"wx": wx, "wh": wh, "b": b})
+    h_seq, c_T = ops.lstm_layer(x, h, c, wx, wh, b)
+    assert torch.equal(h1, h_seq[0]) and torch.equal(c1, c_T)
+    x, h, _, wx, wh, b = _layer_args(g, cuda, dt, 1, 256, 64, 64, 3)
+    assert torch.equal(ops.gru_cell_fused(x[0], h, {"wx": wx, "wh": wh,
+                                                    "b": b}),
+                       ops.gru_layer(x, h, wx, wh, b)[0])
+
+
+def test_layer_wrappers_refuse_bad_inputs(cuda):
+    """Outside the range (weights beyond 8 blocks' shared memory, an empty
+    sequence), a 2-D sequence, a wrong shape or dtype, a CPU tensor: each
+    raises before any launch."""
+    g = torch.Generator().manual_seed(1)
+    x, h, c, wx, wh, b = _layer_args(g, cuda, torch.float32, 4, 8, 2, 16, 4)
+    big = _layer_args(g, cuda, torch.float32, 2, 4, 1, 512, 4)
+    ops.reset_launch_counts()
+    cases = [
+        (ValueError, big),                                   # out of range
+        (ValueError, (x[:0], h, c, wx, wh, b)),               # T = 0
+        (ValueError, (x[0], h, c, wx, wh, b)),                # 2-D x_seq
+        (ValueError, (x, h, c, wx, wh[:, :-1].contiguous(), b)),
+        (ValueError, (x.transpose(0, 1).contiguous().transpose(0, 1), h, c,
+                      wx, wh, b)),                            # not contiguous
+        (ValueError, (x, h, c.cpu(), wx, wh, b)),             # device mix
+        (TypeError, (x, h.bfloat16(), c, wx, wh, b)),         # dtype mix
+        (RuntimeError, (x, h, c, wx, wh.clone().requires_grad_(), b)),
+    ]
+    for exc, args in cases:
+        with pytest.raises(exc):
+            ops.lstm_layer(*args)
+    gx, gh, _, gwx, gwh, gb = _layer_args(g, cuda, torch.float32, 2, 4, 1,
+                                          512, 3)
+    with pytest.raises(ValueError):
+        ops.gru_layer(gx, gh, gwx, gwh, gb)
+    assert ops.launch_counts() == {"lstm_cell": 0, "gru_cell": 0,
+                                   "flash_attention": 0}
+
+
 def test_wrappers_refuse_bad_inputs(cuda):
     g = torch.Generator().manual_seed(0)
     B, I, H = 8, 2, 16
@@ -72,6 +162,8 @@ def test_wrappers_refuse_bad_inputs(cuda):
         (ValueError, (x, h, c, wx.t().contiguous().t(), wh, b)),
         (ValueError, (x, h.cpu(), c, wx, wh, b)),             # device mix
         (RuntimeError, (x, h, c, wx.clone().requires_grad_(), wh, b)),
+        (ValueError, (x, r(B, 512), r(B, 512), r(I, 2048), r(512, 2048),
+                      r(2048))),                              # out of range
     ]
     for exc, args in cases:
         with pytest.raises(exc):
@@ -97,7 +189,8 @@ def test_forecast_on_card_matches_cpu(cuda, cell, n_layers):
              "head": {k: v.to(cuda) for k, v in params["head"].items()}},
             x.to(cuda), cfg).cpu()
         y_cpu = forecaster.forecast(params, x, cfg, "torch")
-    assert ops.launch_counts()[f"{cell}_cell"] == cfg.lookback * n_layers
+    # one launch of the layer kernel per layer, over the whole look-back
+    assert ops.launch_counts()[f"{cell}_cell"] == n_layers
     torch.testing.assert_close(y_card, y_cpu, rtol=1e-4, atol=1e-4)
 
 

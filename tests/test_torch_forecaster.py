@@ -48,6 +48,33 @@ def test_forecast_matches_jax(cell, n_layers, B):
         np.testing.assert_allclose(y, y_pallas, **TOL)
 
 
+@pytest.mark.parametrize("n_layers", [1, 2, 3])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_kernel_route_calls_the_layer_once_per_layer(cell, n_layers,
+                                                     monkeypatch):
+    """cell_impl="kernel" runs each layer in one call of the layer wrapper
+    (one launch on the card), fed the contiguous time-major sequence; the
+    plain route never calls it."""
+    cfg = ForecasterConfig(cell=cell, hidden_dim=16, n_layers=n_layers)
+    params = forecaster.init_forecaster(torch.Generator().manual_seed(5), cfg)
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(6, cfg.lookback, 1)).astype(np.float32))
+    name = f"{cell}_layer"
+    real, calls = getattr(forecaster, name), []
+
+    def counted(x_seq, *args):
+        calls.append((tuple(x_seq.shape), x_seq.is_contiguous()))
+        return real(x_seq, *args)
+
+    monkeypatch.setattr(forecaster, name, counted)
+    y = forecaster.forecast(params, x, cfg, "kernel")
+    assert calls == [((cfg.lookback, 6, 1), True)] + \
+        [((cfg.lookback, 6, 16), True)] * (n_layers - 1)
+    np.testing.assert_array_equal(
+        y.numpy(), forecaster.forecast(params, x, cfg, "torch").numpy())
+    assert len(calls) == n_layers
+
+
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_params_round_trip_and_layout(cell):
     """params_to_numpy inverts params_from_numpy leaf for leaf, and the
