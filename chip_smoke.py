@@ -10,8 +10,11 @@ same engine on the CPU, profiles one full flush, times the kernels at their
 paths' shapes beside cuDNN's sequence calls, drives the dense-LM prefill
 and decode steps at qwen3-14b's full width (8 of its 40 layers) through the
 flash attention kernel (bf16: wgmma on the tensor cores fed by TMA; fp32:
-the CUDA-core kernel), holds them against the plain attention route, and
-ends with one JSON status line.
+the CUDA-core kernel), holds them against the plain attention route, then
+trains the forecaster federatedly (the paper's Algorithm 1: 100 clients x
+365 days, every local step's forward one launch of the layer kernel for
+all clients, its backward the plain layer's VJP) on the kernel route
+against the plain route, and ends with one JSON status line.
 
     python3 chip_smoke.py [--seed N]
 
@@ -216,6 +219,114 @@ def check_flash(seed):
               "cases": rows})
     torch.cuda.empty_cache()
     return slice_err
+
+
+# -------------------------------------------------------------- phase 2c
+# the client axis (federated training: every selected client's forward in
+# one launch, each client with its own weights): (M, B, I, H) at T = 8; the
+# training shape M=100 x B=64 first, then a prime B, the cluster shapes and
+# the GRU's second layer
+CLIENT_SHAPES = [(1, 64, 1, 64), (3, 64, 1, 64), (100, 64, 1, 64),
+                 (3, 61, 1, 64), (3, 64, 4, 128), (3, 32, 16, 256),
+                 (100, 64, 64, 64)]
+TRAIN_SHAPE = (100, 64, 1, 64)      # M, B, I, H of a local step's forward
+
+
+def check_client_axis(seed):
+    """Each layer kernel with a leading client axis against the plain layer
+    with the same axis, on the same CUDA tensors, fp32 (TOL) and bf16 (the
+    layer tolerances of phase 2); then the autograd Function's gradients at
+    the training shape in fp32, within 2e-5 of each gradient's largest
+    magnitude.  Returns the max abs error of each kernel at the training
+    shape in fp32."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gru_cell import gru_layer
+    from repro_torch.kernels.lstm_cell import lstm_layer
+
+    gen = torch.Generator().manual_seed(seed + 5)
+    T, train_err = 8, {}
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+
+        def rnd(*shape):
+            return (torch.randn(*shape, generator=gen) * 0.3).to("cuda", dt)
+
+        rows = []
+        for name in ("lstm_cell", "gru_cell"):
+            G = 4 if name == "lstm_cell" else 3
+            for M, B, I, H in CLIENT_SHAPES:
+                if name == "lstm_cell" and I == 64:
+                    continue            # the LSTM forecaster has one layer
+                x, h, c = rnd(M, T, B, I), rnd(M, B, H), rnd(M, B, H)
+                w = (rnd(M, I, G * H), rnd(M, H, G * H), rnd(M, G * H))
+                if G == 4:
+                    outs = lstm_layer(x, h, c, *w)
+                    plain = ref.lstm_layer_ref(x, h, c, *w)
+                    fused = ref.lstm_layer_ref(x, h, c, *w, fp32_sums=True)
+                else:
+                    outs = (gru_layer(x, h, *w),)
+                    plain = (ref.gru_layer_ref(x, h, *w),)
+                    fused = (ref.gru_layer_ref(x, h, *w, fp32_sums=True),)
+                torch.cuda.synchronize()
+                tol = TOL[dname] if dname == "float32" else LAYER_BF16_TOL
+                errs = [_max_err(o, r, tol) for o, r in zip(outs, plain)]
+                errs += [_max_err(o, r, TOL[dname])
+                         for o, r in zip(outs, fused)]
+                err = max(e for e, _ in errs[:len(outs)])
+                ok = all(k for _, k in errs) and all(
+                    o.dtype == dt and o.shape == r.shape and
+                    bool(torch.isfinite(o).all())
+                    for o, r in zip(outs, plain))
+                rows.append({"kernel": name, "M": M, "T": T, "B": B, "I": I,
+                             "H": H, "max_abs_err": err,
+                             "max_abs_err_fp32_sums": max(
+                                 e for e, _ in errs[len(outs):]), "ok": ok})
+                require(ok, f"{name} {dname} M={M} B={B} I={I} H={H}: "
+                        f"client-axis kernel disagrees with its plain "
+                        f"version (max abs err {err:.3g}, tol {tol})")
+                if dname == "float32" and (M, B, I, H) == TRAIN_SHAPE:
+                    train_err[name] = err
+        emit({"phase": "client_axis_vs_plain", "dtype": dname,
+              "tol": TOL[dname], "layer_bf16_tol": LAYER_BF16_TOL,
+              "cases": rows})
+
+    # gradients through the autograd Function (forward: the kernel;
+    # backward: the VJP of the plain layer) against autograd through the
+    # plain layer, at the training shape with a zero h0 that needs none
+    M, B, I, H = TRAIN_SHAPE
+    grads = []
+    for name in ("lstm_cell", "gru_cell"):
+        G = 4 if name == "lstm_cell" else 3
+        x = (torch.randn(M, T, B, I, generator=gen) * 0.3).cuda()
+        h0 = torch.zeros(M, B, H, device="cuda")
+        c0 = (torch.randn(M, B, H, generator=gen) * 0.3).cuda()
+        w = [(torch.randn(*s, generator=gen) * 0.3).cuda()
+             for s in ((M, I, G * H), (M, H, G * H), (M, G * H))]
+        cot = torch.randn(M, T, B, H, generator=gen).cuda()
+        args = (x, h0, c0, *w) if G == 4 else (x, h0, *w)
+        kernel = lstm_layer if G == 4 else gru_layer
+        plain = ref.lstm_layer_ref if G == 4 else ref.gru_layer_ref
+
+        def run(fn):
+            leaves = [a.clone().requires_grad_(a is not h0) for a in args]
+            out = fn(*leaves)
+            out = out[0] if G == 4 else out
+            return torch.autograd.grad((out * cot).sum(),
+                                       [t for t in leaves if t.requires_grad])
+
+        got, want = run(kernel), run(plain)
+        torch.cuda.synchronize()
+        rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(got, want))
+        grads.append({"kernel": name, "M": M, "B": B, "T": T, "I": I,
+                      "H": H, "max_err_over_grad_max": rel})
+        require(rel <= 2e-5, f"{name}: the autograd Function's gradients "
+                f"differ from the plain layer's by {rel:.3g} of their max "
+                "(tol 2e-5)")
+    emit({"phase": "layer_function_grads", "dtype": "float32",
+          "tol_of_grad_max": 2e-5, "cases": grads})
+    return train_err
 
 
 # --------------------------------------------------------------- phase 3
@@ -500,7 +611,7 @@ def time_kernels(seed):
                             continue
                         sweep[f"rows{rows}_rpt{rpt}_ks{ks}"] = time_ms(
                             lambda: _cuda.launch(name, ins + outs,
-                                                 (T, B, I, H, *plan)),
+                                                 (1, T, B, I, H, *plan)),
                             100, 20)[0]
             t["plan_sweep_ms"] = sweep
         out[key] = _bound(t, FP32_FLOPS_PER_S)
@@ -588,6 +699,74 @@ def time_flash(seed):
           "median_of": 20, "flash_attention": out})
     del q, k, v
     torch.cuda.empty_cache()
+    return out
+
+
+# -------------------------------------------------------------- phase 4c
+def time_training_layer(seed):
+    """At the training shape (M=100 clients x B=64 rows, T=8, H=64, fp32;
+    I=1, and the GRU's second layer at I=64): each layer kernel with the
+    client axis, its plain version, and cuDNN's nn.LSTM / nn.GRU over the
+    same 6,400 rows with ONE weight set (no library call takes per-client
+    weights: a floor, not the same function), beside the bound from bytes
+    and FLOPs, M times one client's."""
+    import torch
+    from repro_torch.kernels import _cuda, ref
+    from repro_torch.kernels.gru_cell import gru_layer
+    from repro_torch.kernels.lstm_cell import lstm_layer
+
+    M, B, _, H = TRAIN_SHAPE
+    T = 8
+    gen = torch.Generator().manual_seed(seed + 6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=gen) * 0.3).to("cuda")
+
+    out = {}
+    for key, cell, I in (("lstm_cell", "lstm", 1), ("gru_cell", "gru", 1),
+                         ("gru_cell_i64", "gru", 64)):
+        name, G = f"{cell}_cell", 4 if cell == "lstm" else 3
+        x, h, c = rnd(M, T, B, I), rnd(M, B, H), rnd(M, B, H)
+        w = (rnd(M, I, G * H), rnd(M, H, G * H), rnd(M, G * H))
+        # the library's floor: client 0's weights over all M x B rows
+        mod = _cudnn_layer(cell, w[0][0], w[1][0], w[2][0])
+        xs = x.transpose(0, 1).reshape(T, M * B, I).contiguous()
+        hs, cs = h.reshape(1, M * B, H), c.reshape(1, M * B, H)
+        if cell == "lstm":
+            def kernel():
+                return lstm_layer(x, h, c, *w)
+
+            def plain():
+                return ref.lstm_layer_ref(x, h, c, *w)
+
+            def library():
+                return mod(xs, (hs, cs))[0]
+        else:
+            def kernel():
+                return gru_layer(x, h, *w)
+
+            def plain():
+                return ref.gru_layer_ref(x, h, *w)
+
+            def library():
+                return mod(xs, hs)[0]
+        with torch.inference_mode():
+            want = plain()
+            want = want[0] if cell == "lstm" else want
+            require(_max_err(library()[:, :B], want[0], 2e-5)[1],
+                    f"cuDNN's nn.{cell.upper()} floor does not compute the "
+                    "repo's layer on client 0's rows")
+            n_bytes, flops = _layer_bytes_flops(G, T, B, I, H)
+            t = _timed(kernel, plain, library, iters=100, warmup=10, M=M,
+                       T=T, B=B, I=I, H=H, bytes=M * n_bytes,
+                       flops=M * flops,
+                       plan=_cuda.cell_plan(name, B, I, H, 4, sms,
+                                            M=M)._asdict())
+        out[key] = _bound(t, FP32_FLOPS_PER_S)
+        out[key]["library"] = (f"torch.nn.{cell.upper()} (cuDNN), one "
+                               f"weight set over {M * B} rows: a floor")
+    emit({"phase": "train_layer_timing", "median_of": 100, **out})
     return out
 
 
@@ -702,6 +881,265 @@ def lm_slice(seed):
     return counts["flash_attention"]
 
 
+# --------------------------------------------------------------- phase 6
+# launch/train.py's defaults (100 CA buildings, all per round, 365 days,
+# B=64, E=1, lr 0.05, ew_mse beta 2, fedavg, no clusters, 200 held-out
+# buildings) with the rounds cut 100 -> 3; the plain route for the first 2
+# the 2-layer GRU at lr 0.02: at launch/train.py's 0.05, one client's local
+# SGD (building 6) diverges to inf within the first round from the seed-0
+# init, on both routes and on the CPU alike (the port matches the JAX
+# package from the JAX package's init, which trains at 0.05)
+GRU_TRAIN = ("--clients", "20", "--days", "60", "--heldout", "20",
+             "--lr", "0.02")
+TRAIN_ROUNDS, CHECK_ROUNDS = 3, 2
+EVAL_BATCH = 8192                  # fedavg.evaluate_global's sub-batches
+
+
+def _route_deviation(a, b):
+    """Kernel route ``a`` against plain route ``b`` (FLResult dicts): the
+    worst loss-history error over its rtol 1e-4 and the worst param error
+    over rtol 1e-3 / atol 1e-5 (1 = at the tolerance)."""
+    import numpy as np
+    from repro_torch.models.layers import tree_leaves
+
+    loss = max(float(np.max(np.abs(a[c].loss_history - b[c].loss_history)
+                            / (1e-4 * np.abs(b[c].loss_history))))
+               for c in b)
+    par = max(float(np.max(np.abs(x - y) / (1e-5 + 1e-3 * np.abs(y))))
+              for c in b for x, y in zip(tree_leaves(a[c].params),
+                                         tree_leaves(b[c].params)))
+    return {"loss_history_over_tol": loss, "params_over_tol": par}
+
+
+def _train_routes(argv, fcfg):
+    """run_federated_training on the kernel route (its launches counted)
+    and on the plain route, from the same seeded init, for the config of
+    launch/train.py's flags ``argv``.  Returns both results, the kernel
+    route's launches, the flags and the local steps per round."""
+    from repro_torch.core import fedavg
+    from repro_torch.data import partition, synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    args, _, flcfg = train.configs(argv)
+    series = synthetic.generate_buildings(args.state, list(range(
+        args.clients)), days=args.days)
+    steps = partition.local_steps(
+        fedavg._as_provider(series, fcfg).n_win_max, args.batch_size,
+        args.local_epochs)
+    ops.reset_launch_counts()
+    kern = fedavg.run_federated_training(series, fcfg, flcfg, device="cuda")
+    counts = ops.launch_counts()
+    plain = fedavg.run_federated_training(series, fcfg, flcfg,
+                                          cell_impl="torch", device="cuda")
+    return kern, plain, counts, args, steps
+
+
+def _step_split(fcfg, seed, n_clients=100, days=365, reps=10):
+    """One warm local step of n_clients at B=64 (``client.sgd_step``), at
+    the phase's shapes: its unprofiled wall; the device time of each of its
+    parts (the forward kernel, the head, the loss, the plain backward, the
+    SGD update) from CUDA events between the parts, with the host held
+    ahead of the card by a spin so that no host gap falls between two
+    events (median of ``reps``); and torch.profiler over one step: the
+    device's activities, its busy share of the wall, and the costliest
+    kernels.  The profiler does not always list the layer kernel (a
+    ctypes launch), so the split comes from the events."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import fedavg, losses
+    from repro_torch.core.client import sgd_step
+    from repro_torch.data import synthetic
+    from repro_torch.models import forecaster
+    from repro_torch.models.layers import (seeded_generator, tree_leaves,
+                                           tree_map)
+
+    series = synthetic.generate_buildings("CA", list(range(n_clients)),
+                                          days=days)
+    x, y, _ = fedavg._as_provider(series, fcfg).round_batch(
+        np.arange(n_clients))
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.integers(0, x.shape[1], (n_clients, 64))
+                           ).cuda()
+    rows = torch.arange(n_clients, device="cuda")[:, None]
+    batch = {"x": torch.from_numpy(x).cuda()[rows, idx],
+             "y": torch.from_numpy(y).cuda()[rows, idx]}
+    params = forecaster.init_forecaster(seeded_generator(seed, 0), fcfg)
+    stacked = tree_map(lambda w: w.cuda().expand((n_clients,) + w.shape)
+                       .clone(), params)
+    loss, lr = losses.make_loss("ew_mse", 2.0), 0.05
+
+    def step():
+        return sgd_step(stacked, batch, lr, fcfg, loss)
+
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 20
+
+    # the same step in its parts (client.sgd_step's body), an event after
+    # each; the autograd engine runs the backward on the same stream
+    parts = ("forward_kernel", "head", "loss", "backward", "sgd_update")
+
+    def split_step(events):
+        leaves = [t.detach().requires_grad_()
+                  for t in tree_leaves(stacked)]
+        it = iter(leaves)
+        p = tree_map(lambda _: next(it), stacked)
+        events[0].record()
+        with torch.enable_grad():
+            h = forecaster.encode(p, batch["x"], fcfg)
+            events[1].record()
+            pred = forecaster.head(p, h)
+            events[2].record()
+            per_client = loss(pred, batch["y"], dim=(-2, -1))
+            events[3].record()
+            grads = torch.autograd.grad(per_client.sum(), leaves)
+            events[4].record()
+        with torch.no_grad():
+            [w - lr * g for w, g in zip(tree_leaves(stacked), grads)]
+        events[5].record()
+
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(1_000_000)
+    b.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 1_000_000 / a.elapsed_time(b)
+    split = []
+    for _ in range(reps):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        torch.cuda._sleep(int(cycles_per_ms * 3 * wall_ms))
+        split_step(events)
+        torch.cuda.synchronize()
+        split.append([events[i].elapsed_time(events[i + 1])
+                      for i in range(5)])
+    by_part = dict(zip(parts, np.median(np.array(split), axis=0).tolist()))
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    acts = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    top = sorted(acts, key=lambda e: -e.self_device_time_total)[:12]
+    device_ms = sum(by_part.values())
+    return {
+        "clients": n_clients, "batch": 64, "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "device_ms_by_part": by_part, "split_median_of": reps,
+        "profiler": {
+            "device_activities": sum(e.count for e in acts),
+            "device_ms": sum(e.self_device_time_total for e in acts) / 1e3,
+            "layer_kernel_listed": any("_layer_kernel" in e.key
+                                       for e in acts),
+            "top": [{"name": e.key[:90], "calls": e.count,
+                     "ms": e.self_device_time_total / 1e3} for e in top]}}
+
+
+def train_slice(seed):
+    """Federated training on the card (phase 6).  The main path:
+    ``launch/train.py`` with its defaults, rounds cut to TRAIN_ROUNDS,
+    through ``run_federated_training`` on the kernel route at
+    ``ForecasterConfig()``, then evaluation on 200 held-out buildings; its
+    LSTM launches must be rounds x local steps x n_layers in training and
+    one per 8192-window batch in evaluation.  Then the kernel and plain
+    routes for CHECK_ROUNDS rounds from the same init, held to each other at
+    the CPU tests' tolerances; the 2-layer GRU on 20 buildings x 60 days the
+    same way; and a profile of one warm local step.  Returns the training
+    launches of each cell."""
+    import math
+
+    import numpy as np
+    from repro_torch.configs.base import ForecasterConfig
+    from repro_torch.core import fedavg
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    main_argv = ["--rounds", str(TRAIN_ROUNDS), "--seed", str(seed)]
+    margs, _, _ = train.configs(main_argv)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = train.main(main_argv)
+    main_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps = summary["local_steps_per_round"]
+    want_train = TRAIN_ROUNDS * steps
+    want_eval = math.ceil(summary["heldout_windows"] / EVAL_BATCH)
+    require(summary["launches_train"] == {"lstm_cell": want_train,
+                                          "gru_cell": 0,
+                                          "flash_attention": 0},
+            f"training launches {summary['launches_train']}, expected "
+            f"lstm_cell = {TRAIN_ROUNDS} rounds x {steps} steps x 1 layer")
+    require(summary["launches_eval"]["lstm_cell"] == want_eval,
+            f"evaluation launches {summary['launches_eval']}, expected "
+            f"{want_eval} (one per {EVAL_BATCH}-window batch)")
+    require(counts["lstm_cell"] == want_train + want_eval,
+            f"launch counts {counts} over the main path")
+    hist = np.array(summary["loss_history"]["-1"])
+    held = summary["heldout"]
+    require(np.isfinite(hist).all() and hist[-1] < hist[0],
+            f"training loss not finite and falling: {hist}")
+    require(all(np.isfinite(v) for v in held.values())
+            and 0 < held["accuracy"] <= 100, f"held-out metrics {held}")
+
+    argv = ["--rounds", str(CHECK_ROUNDS), "--seed", str(seed)]
+    kern, plain, _, _, _ = _train_routes(argv, ForecasterConfig())
+    dev = _route_deviation(kern, plain)
+    require(max(dev.values()) <= 1.0, f"kernel vs plain route: {dev}")
+    np.testing.assert_allclose(hist[:CHECK_ROUNDS],
+                               kern[-1].loss_history, rtol=1e-4)
+
+    gcfg = ForecasterConfig(cell="gru", n_layers=2)
+    gkern, gplain, gcounts, gargs, gsteps = _train_routes(
+        [*GRU_TRAIN, *argv], gcfg)
+    require(gcounts == {"lstm_cell": 0, "gru_cell": CHECK_ROUNDS * gsteps * 2,
+                        "flash_attention": 0},
+            f"GRU-2 launch counts {gcounts}, expected {CHECK_ROUNDS} rounds "
+            f"x {gsteps} steps x 2 layers")
+    gdev = _route_deviation(gkern, gplain)
+    require(max(gdev.values()) <= 1.0, f"GRU-2 kernel vs plain: {gdev}")
+    ghist = gkern[-1].loss_history
+    require(np.isfinite(ghist).all(), f"GRU-2 loss {ghist}")
+    held_ids = list(range(10_000, 10_000 + int(gargs.heldout)))
+    gheld = fedavg.evaluate_unseen_clients(
+        gkern[-1].params, synthetic.generate_buildings(
+            gargs.state, held_ids, days=gargs.days), gcfg, device="cuda")
+
+    split = _step_split(ForecasterConfig(), seed)
+    emit({"phase": "train", "cfg": dataclasses.asdict(ForecasterConfig()),
+          "clients": margs.clients,
+          "clients_per_round": summary["clients_per_round"],
+          "days": margs.days, "rounds": TRAIN_ROUNDS,
+          "cut": "rounds 100 -> 3 (launch/train.py's defaults otherwise)",
+          "local_steps_per_round": steps,
+          "wall_s_per_round": summary["wall_s_per_round"],
+          "local_steps_per_s": steps / summary["wall_s_per_round"],
+          "main_path_s": main_s, "loss_history": hist.tolist(),
+          "heldout_buildings": margs.heldout, "heldout": held,
+          "launches": counts, "launches_train": summary["launches_train"],
+          "launches_eval": summary["launches_eval"],
+          "route_check_rounds": CHECK_ROUNDS,
+          "kernel_vs_plain": dev, "local_step_profile": split,
+          "gru2": {"clients": gargs.clients, "days": gargs.days,
+                   "rounds": CHECK_ROUNDS,
+                   "local_steps_per_round": gsteps, "launches": gcounts,
+                   "loss_history": ghist.tolist(), "kernel_vs_plain": gdev,
+                   "heldout_buildings": len(held_ids),
+                   "heldout": {k: gheld[k] for k in
+                               ("accuracy", "mape", "rmse")}}})
+    return {"lstm_cell": want_train, "gru_cell": gcounts["gru_cell"]}
+
+
 def _device_profile(run, steps):
     """torch.profiler around ``run()`` (which does ``steps`` steps and ends
     in a synchronize): the device's own activity (kernels, copies, fills;
@@ -804,19 +1242,27 @@ def main():
     # were already built): registers, stack, spills, static shared memory
     ptxas = {n: _cuda.ptxas_report(log) for n, log in _cuda.BUILD_LOG.items()}
     # the launch plans of the serving path's layers (B=256, H=64, fp32)
+    # and of a local step's forward (M=100 clients x B=64)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plans = {f"{n}_I{I}": _cuda.cell_plan(n, 256, I, 64, 4, sms)._asdict()
              for n, I in (("lstm_cell", 1), ("gru_cell", 1),
                           ("gru_cell", 64))}
+    train_plans = {f"{n}_I{I}": _cuda.cell_plan(n, 64, I, 64, 4, sms,
+                                                M=100)._asdict()
+                   for n, I in (("lstm_cell", 1), ("gru_cell", 1),
+                                ("gru_cell", 64))}
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "sms": sms,
-          "kernel_build_s": build_s, "serving_plans": plans, "ptxas": ptxas})
+          "kernel_build_s": build_s, "serving_plans": plans,
+          "training_plans": train_plans, "ptxas": ptxas})
 
-    # ---- phase 2: each kernel against its plain version on the card
+    # ---- phase 2: each kernel against its plain version on the card, the
+    # cells also with the client axis and through their autograd Function
     errs = check_kernels(args.seed)
     errs["flash_attention"] = check_flash(args.seed)
+    train_errs = check_client_axis(args.seed)
 
     # ---- phase 3: the serving slice, LSTM then 2-layer GRU: one launch of
     # the layer kernel per layer per flush
@@ -828,25 +1274,44 @@ def main():
         wall[name] = served["full_flush_wall_s"]
         require(launches[name] > 0, f"{name} never launched on its path")
 
-    # ---- phase 4: times at the serving shape, and flash at the LM shape
+    # ---- phase 4: times at the serving shape, flash at the LM shape, the
+    # cells at the training shape
     times = time_kernels(args.seed)
     times["flash_attention"] = time_flash(args.seed)
+    train_times = time_training_layer(args.seed)
 
     # ---- phase 5: the dense-LM prefill and decode slice
     launches["flash_attention"] = lm_slice(args.seed)
     require(launches["flash_attention"] > 0,
             "flash_attention never launched on its path")
 
+    # ---- phase 6: federated training, LSTM at ForecasterConfig() then the
+    # 2-layer GRU: one launch per layer per local step for all clients
+    train_launches = train_slice(args.seed)
+    for n, k in train_launches.items():
+        require(k > 0, f"{n} never launched on the training path")
+
     replaces = {"lstm_cell": "src/repro/kernels/lstm_cell.py:24",
                 "gru_cell": "src/repro/kernels/gru_cell.py:17",
                 "flash_attention": "src/repro/kernels/flash_attention.py:28"}
 
     def extra(n):
-        """The cells' line: the layer at T=8 (the GRU's first layer), with
-        the second GRU layer and the T = 1 step beside it."""
+        """The cells' line: the layer at T=8 (the GRU's first layer) at
+        the serving shape, with the second GRU layer and the T = 1 step
+        beside it; the launches of each path; the layer at the training
+        shape (M=100 clients x B=64) with the client axis."""
         if n not in wall:
             return {}
-        more = {"shape": {"B": 256, "T": 8, "I": 1, "H": 64,
+        tt = train_times[n]
+        more = {"launches_by_path": {"serve": launches[n],
+                                     "train": train_launches[n]},
+                "train_shape": {
+                    "M": tt["M"], "B": tt["B"], "T": tt["T"], "I": tt["I"],
+                    "H": tt["H"], "max_abs_err": train_errs[n],
+                    **{k: tt[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "bound_share",
+                                          "library_ms", "library")}},
+                "shape": {"B": 256, "T": 8, "I": 1, "H": 64,
                           "dtype": "float32"},
                 "library": f"torch.nn.{n[:-5].upper()} (cuDNN)",
                 "engine_full_flush_wall_ms": wall[n] * 1e3,
@@ -855,11 +1320,16 @@ def main():
         if n == "gru_cell":
             more["second_layer"] = {k: times["gru_cell_i64"][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_share")}
+            more["train_shape"]["second_layer"] = {
+                k: train_times["gru_cell_i64"][k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_share")}
         return more
 
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",
-         "replaces": replaces[n], "launches": launches[n],
+         "replaces": replaces[n],
+         "launches": launches[n] + train_launches.get(n, 0),
          "max_abs_err": errs[n], "ms": times[n]["ms"],
          "plain_ms": times[n]["plain_ms"], "bound_ms": times[n]["bound_ms"],
          "bound_by": times[n]["bound_by"],

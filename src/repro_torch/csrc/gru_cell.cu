@@ -38,6 +38,14 @@ __global__ void __launch_bounds__(layer::kMaxThreads, 1)
                      layer::Dims d) {
   extern __shared__ __align__(16) unsigned char smem[];
   LAYER_STAMP(0);
+  // this block's client: its slice of every array
+  const layer::ClientSlice cs = layer::client_slice<kGates>(d);
+  x_seq += cs.seq_in;
+  h0 += cs.state;
+  wx += cs.wx;
+  wh += cs.wh;
+  b += cs.bias;
+  h_seq += cs.seq_out;
   const layer::Layout<T, kGates> L(d);
   const int row0 = blockIdx.x * d.rows;
   const int j0 = blockIdx.y * L.hc;
@@ -125,10 +133,10 @@ int launch_plan(const void* x_seq, const void* h0, const void* wx,
 
 template <typename T>
 int launch(const void* x_seq, const void* h0, const void* wx, const void* wh,
-           const void* b, void* h_seq, int T_, int B, int I, int H,
+           const void* b, void* h_seq, int M, int T_, int B, int I, int H,
            int cluster, int rows, int rows_per_thread, int k_split,
            int threads, void* stream) {
-  const layer::Dims d{T_, B, I, H, cluster, rows, threads};
+  const layer::Dims d{M, T_, B, I, H, cluster, rows, threads};
   return layer::dispatch(rows_per_thread, k_split, [&](auto rpt, auto ks) {
     return launch_plan<T, decltype(rpt)::value, decltype(ks)::value>(
         x_seq, h0, wx, wh, b, h_seq, d, stream);
@@ -139,24 +147,25 @@ int launch(const void* x_seq, const void* h0, const void* wx, const void* wh,
 
 extern "C" {
 
-// x_seq (T, B, I), h0 (B, H), wx (I, 3H), wh (H, 3H), b (3H) in; h_seq
-// (T, B, H) out; then the sizes and the launch plan of
+// For M clients, each with its own weights: x_seq (M, T, B, I), h0
+// (M, B, H), wx (M, I, 3H), wh (M, H, 3H), b (M, 3H) in; h_seq (M, T, B, H)
+// out (M = 1: one layer call); then the sizes and the launch plan of
 // kernels/_cuda.py::cell_plan
 int repro_gru_cell_f32(const void* x_seq, const void* h0, const void* wx,
-                       const void* wh, const void* b, void* h_seq, int T,
-                       int B, int I, int H, int cluster, int rows,
+                       const void* wh, const void* b, void* h_seq, int M,
+                       int T, int B, int I, int H, int cluster, int rows,
                        int rows_per_thread, int k_split, int threads,
                        void* stream) {
-  return launch<float>(x_seq, h0, wx, wh, b, h_seq, T, B, I, H, cluster, rows,
-                       rows_per_thread, k_split, threads, stream);
+  return launch<float>(x_seq, h0, wx, wh, b, h_seq, M, T, B, I, H, cluster,
+                       rows, rows_per_thread, k_split, threads, stream);
 }
 
 int repro_gru_cell_bf16(const void* x_seq, const void* h0, const void* wx,
-                        const void* wh, const void* b, void* h_seq, int T,
-                        int B, int I, int H, int cluster, int rows,
+                        const void* wh, const void* b, void* h_seq, int M,
+                        int T, int B, int I, int H, int cluster, int rows,
                         int rows_per_thread, int k_split, int threads,
                         void* stream) {
-  return launch<__nv_bfloat16>(x_seq, h0, wx, wh, b, h_seq, T, B, I, H,
+  return launch<__nv_bfloat16>(x_seq, h0, wx, wh, b, h_seq, M, T, B, I, H,
                                cluster, rows, rows_per_thread, k_split,
                                threads, stream);
 }

@@ -49,6 +49,16 @@ __global__ void __launch_bounds__(layer::kMaxThreads, 1)
                       layer::Dims d) {
   extern __shared__ __align__(16) unsigned char smem[];
   LAYER_STAMP(0);
+  // this block's client: its slice of every array
+  const layer::ClientSlice cs = layer::client_slice<kGates>(d);
+  x_seq += cs.seq_in;
+  h0 += cs.state;
+  c0 += cs.state;
+  wx += cs.wx;
+  wh += cs.wh;
+  b += cs.bias;
+  h_seq += cs.seq_out;
+  c_out += cs.state;
   const layer::Layout<T, kGates> L(d);
   const int row0 = blockIdx.x * d.rows;
   const int j0 = blockIdx.y * L.hc;
@@ -135,10 +145,10 @@ int launch_plan(const void* x_seq, const void* h0, const void* c0,
 
 template <typename T>
 int launch(const void* x_seq, const void* h0, const void* c0, const void* wx,
-           const void* wh, const void* b, void* h_seq, void* c_out, int T_,
-           int B, int I, int H, int cluster, int rows, int rows_per_thread,
-           int k_split, int threads, void* stream) {
-  const layer::Dims d{T_, B, I, H, cluster, rows, threads};
+           const void* wh, const void* b, void* h_seq, void* c_out, int M,
+           int T_, int B, int I, int H, int cluster, int rows,
+           int rows_per_thread, int k_split, int threads, void* stream) {
+  const layer::Dims d{M, T_, B, I, H, cluster, rows, threads};
   return layer::dispatch(rows_per_thread, k_split, [&](auto rpt, auto ks) {
     return launch_plan<T, decltype(rpt)::value, decltype(ks)::value>(
         x_seq, h0, c0, wx, wh, b, h_seq, c_out, d, stream);
@@ -149,27 +159,28 @@ int launch(const void* x_seq, const void* h0, const void* c0, const void* wx,
 
 extern "C" {
 
-// x_seq (T, B, I), h0 and c0 (B, H), wx (I, 4H), wh (H, 4H), b (4H) in;
-// h_seq (T, B, H) and c_out (B, H) out; then the sizes and the launch plan
-// of kernels/_cuda.py::cell_plan
+// For M clients, each with its own weights: x_seq (M, T, B, I), h0 and c0
+// (M, B, H), wx (M, I, 4H), wh (M, H, 4H), b (M, 4H) in; h_seq (M, T, B, H)
+// and c_out (M, B, H) out (M = 1: one layer call); then the sizes and the
+// launch plan of kernels/_cuda.py::cell_plan
 int repro_lstm_cell_f32(const void* x_seq, const void* h0, const void* c0,
                         const void* wx, const void* wh, const void* b,
-                        void* h_seq, void* c_out, int T, int B, int I, int H,
-                        int cluster, int rows, int rows_per_thread,
+                        void* h_seq, void* c_out, int M, int T, int B, int I,
+                        int H, int cluster, int rows, int rows_per_thread,
                         int k_split, int threads, void* stream) {
-  return launch<float>(x_seq, h0, c0, wx, wh, b, h_seq, c_out, T, B, I, H,
+  return launch<float>(x_seq, h0, c0, wx, wh, b, h_seq, c_out, M, T, B, I, H,
                        cluster, rows, rows_per_thread, k_split, threads,
                        stream);
 }
 
 int repro_lstm_cell_bf16(const void* x_seq, const void* h0, const void* c0,
                          const void* wx, const void* wh, const void* b,
-                         void* h_seq, void* c_out, int T, int B, int I, int H,
-                         int cluster, int rows, int rows_per_thread,
+                         void* h_seq, void* c_out, int M, int T, int B, int I,
+                         int H, int cluster, int rows, int rows_per_thread,
                          int k_split, int threads, void* stream) {
-  return launch<__nv_bfloat16>(x_seq, h0, c0, wx, wh, b, h_seq, c_out, T, B,
-                               I, H, cluster, rows, rows_per_thread, k_split,
-                               threads, stream);
+  return launch<__nv_bfloat16>(x_seq, h0, c0, wx, wh, b, h_seq, c_out, M, T,
+                               B, I, H, cluster, rows, rows_per_thread,
+                               k_split, threads, stream);
 }
 
 const char* repro_error_string(int err) {

@@ -6,8 +6,13 @@
 //
 // A layer kernel runs one recurrent layer over the whole look-back in one
 // launch: the gate weights come on chip once, h stays in shared memory and
-// c in registers between steps.  The grid is (row blocks, column blocks):
-// a block owns `rows` batch rows and `hc` hidden columns of every gate.
+// c in registers between steps.  The grid is (row blocks, column blocks,
+// clients): a block owns `rows` batch rows and `hc` hidden columns of every
+// gate of one client.  Each client (blockIdx.z, M of them) has its own
+// inputs, state and weights, laid out one after another (x_seq (M, T, B,
+// I), wx (M, I, G*H), ...); a block offsets every pointer to its client's
+// slice first (client_slice) and then works as if M were 1, staging its
+// own client's weights.
 // Where the weights of all H columns fit one block, the cluster is 1 and
 // hc = H; otherwise `cluster` blocks (2, 4 or 8, one cluster) split the
 // columns, and each publishes its slice of h' to the others through
@@ -36,15 +41,16 @@
 #include <cstdint>
 #include <type_traits>
 
-// Cycle stamps of thread 0 of block (0, 0) at the phases of a launch, read
+// Cycle stamps of thread 0 of block (0, 0, 0) at the phases of a launch, read
 // by tools/cell_layer_stamps.py; compiled in only with -DLAYER_STAMPS, so
 // the built kernels carry none.  0 entry, 1 mbarrier ready, 2 copies
 // issued, 3 padding zeroed, 4 row buffers filled, 5 weights landed,
 // 6 prologue done; step t: 8 + 4t top, +1 sums, +2 epilogue, +3 barrier.
 #ifdef LAYER_STAMPS
 __device__ unsigned long long layer_stamps[64];
-#define LAYER_STAMP(i)                                                  \
-  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 && (i) < 64) \
+#define LAYER_STAMP(i)                                                 \
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&           \
+      threadIdx.x == 0 && (i) < 64)                                      \
   layer_stamps[(i)] = clock64()
 extern "C" int repro_layer_stamps(unsigned long long* out) {
   return static_cast<int>(
@@ -61,6 +67,7 @@ namespace cg = cooperative_groups;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory of one sm_90 block
 constexpr int kXRegs = 4;           // x values a thread carries to the next step
 constexpr int kMaxThreads = 512;    // per block: leaves 128 registers a thread
+constexpr int kMaxClients = 65535;  // gridDim.z
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
@@ -83,13 +90,31 @@ __host__ __device__ constexpr int round_up(int n, int m) {
   return (n + m - 1) / m * m;
 }
 
-// the sizes of a launch, the same on the host and in every block
+// Offsets, in elements, of client blockIdx.z's slices of a layer's arrays
+// (G gates): the sequences (T, B, I) in and (T, B, H) out, the state
+// (B, H), wx (I, G*H), wh (H, G*H) and the bias (G*H).  size_t, since
+// M * T * B * H passes 2^31 at training sizes.
+struct ClientSlice {
+  size_t seq_in, seq_out, state, wx, wh, bias;
+};
+
+// the sizes of a launch, the same on the host and in every block; T, B,
+// I, H are one client's
 struct Dims {
+  int M;        // clients, each with its own weights (gridDim.z)
   int T, B, I, H;
   int cluster;  // blocks splitting the hidden columns
   int rows;     // batch rows per block
   int threads;  // threads per block
 };
+
+template <int G>
+__device__ __forceinline__ ClientSlice client_slice(const Dims& d) {
+  const size_t m = blockIdx.z;
+  const size_t gh = static_cast<size_t>(G) * d.H;
+  return {m * d.T * d.B * d.I, m * d.T * d.B * d.H, m * d.B * d.H,
+          m * d.I * gh, m * d.H * gh, m * gh};
+}
 
 template <typename T, int G>
 struct Layout {
@@ -430,7 +455,8 @@ __device__ __forceinline__ void step_barrier(const Dims& d) {
 }
 
 // Launch kernel on stream with the dynamic shared memory of its layout
-// (opted in above 48 KB), and a cluster of d.cluster blocks along y.
+// (opted in above 48 KB), a cluster of d.cluster blocks along y and the
+// clients along z.
 // Returns the launch's error code.
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, std::atomic<int>* smem_opted_in, size_t smem,
@@ -446,7 +472,7 @@ int launch(Kernel kernel, std::atomic<int>* smem_opted_in, size_t smem,
     smem_opted_in->store(static_cast<int>(smem));
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((d.B + d.rows - 1) / d.rows, d.cluster, 1);
+  cfg.gridDim = dim3((d.B + d.rows - 1) / d.rows, d.cluster, d.M);
   cfg.blockDim = dim3(d.threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -489,7 +515,8 @@ inline bool bad_dims(const Dims& d, int rows_per_thread, int k_split,
                      int hc) {
   const bool cluster_ok = d.cluster == 1 || d.cluster == 2 ||
                           d.cluster == 4 || d.cluster == 8;
-  return d.T < 1 || d.B < 1 || d.I < 1 || d.H < 1 || !cluster_ok ||
+  return d.M < 1 || d.M > kMaxClients || d.T < 1 || d.B < 1 || d.I < 1 ||
+         d.H < 1 || !cluster_ok ||
          d.rows < 1 || d.rows % rows_per_thread != 0 || d.threads < 32 ||
          d.threads > kMaxThreads || d.threads % 32 != 0 ||
          d.threads < hc * k_split * (d.rows / rows_per_thread) ||

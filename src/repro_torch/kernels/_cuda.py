@@ -42,10 +42,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # then its sizes, flags and scales; the stream follows them all
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    # T, B, I, H, then the CellPlan: cluster, rows, rows_per_thread,
-    # k_split, threads
-    "lstm_cell": [_P] * 8 + [_I] * 9,
-    "gru_cell": [_P] * 6 + [_I] * 9,
+    # M (clients), T, B, I, H, then the CellPlan: cluster, rows,
+    # rows_per_thread, k_split, threads
+    "lstm_cell": [_P] * 8 + [_I] * 10,
+    "gru_cell": [_P] * 6 + [_I] * 10,
     # B, S, Hq, Hkv, hd, window; scale
     "flash_attention": [_P] * 4 + [_I] * 6 + [_F],
 }
@@ -165,6 +165,7 @@ CLUSTERS = (1, 2, 4, 8)      # blocks splitting the columns; 8 is portable
 MAX_ROWS = 4                 # batch rows per block
 X_REGS = 4                   # x values a thread carries to the next step
 MAX_THREADS = 512            # per block (__launch_bounds__ of the kernels)
+MAX_CLIENTS = 65535          # clients of one launch (gridDim.z)
 GATES = {"lstm_cell": 4, "gru_cell": 3}
 ROWS_PER_THREAD = 2          # batch rows of one thread (the kernels take 1, 2)
 K_SPLIT = 4                  # lanes sharing a column's sums (they take 2, 4)
@@ -213,19 +214,26 @@ def _cluster(gates: int, I: int, H: int, itemsize: int):
 
 def cell_dims(name: str, x_seq: torch.Tensor,
               h: torch.Tensor) -> Tuple[int, int, int, int]:
-    """(T, B, I, H) of a layer call, raising outside the kernels' range:
-    T, B, I, H >= 1 and weights that 8 blocks' shared memory holds (in fp32
-    H <= 256 at any I <= 64 for both cells)."""
-    if x_seq.dim() != 3 or h.dim() != 2:
-        raise ValueError(f"{name}: x_seq must be 3-D (T, B, I) and h 2-D, "
-                         f"got {tuple(x_seq.shape)} and {tuple(h.shape)}")
-    (T, B, I), H = x_seq.shape, h.shape[-1]
+    """(T, B, I, H) of one client's layer call, raising outside the
+    kernels' range: T, B, I, H >= 1 and weights that 8 blocks' shared
+    memory holds (in fp32 H <= 256 at any I <= 64 for both cells).  x_seq is
+    (T, B, I) with h (B, H), or (M, T, B, I) with h (M, B, H) for M clients
+    (1 <= M <= ``MAX_CLIENTS``), each with its own weights."""
+    if not ((x_seq.dim() == 3 and h.dim() == 2)
+            or (x_seq.dim() == 4 and h.dim() == 3)):
+        raise ValueError(f"{name}: x_seq must be 3-D (T, B, I) with h 2-D, "
+                         f"or 4-D (M, T, B, I) with h 3-D, got "
+                         f"{tuple(x_seq.shape)} and {tuple(h.shape)}")
+    (T, B, I), H = x_seq.shape[-3:], h.shape[-1]
+    M = x_seq.shape[0] if x_seq.dim() == 4 else 1
     itemsize = 2 if x_seq.dtype == torch.bfloat16 else 4
-    if (min(T, B, I, H) < 1 or MAX_ROWS * I > X_REGS * MAX_THREADS
+    if (min(M, T, B, I, H) < 1 or M > MAX_CLIENTS
+            or MAX_ROWS * I > X_REGS * MAX_THREADS
             or _cluster(GATES[name], I, H, itemsize) is None):
         raise ValueError(
-            f"{name}: T={T}, B={B}, I={I}, H={H} outside the kernel's range "
-            f"(T, B, I, H >= 1, I <= {X_REGS * MAX_THREADS // MAX_ROWS}, "
+            f"{name}: M={M}, T={T}, B={B}, I={I}, H={H} outside the "
+            f"kernel's range (M, T, B, I, H >= 1, M <= {MAX_CLIENTS}, "
+            f"I <= {X_REGS * MAX_THREADS // MAX_ROWS}, "
             f"and the weights within {max(CLUSTERS)} blocks' shared memory "
             f"of {SMEM_LIMIT} bytes each)")
     return T, B, I, H
@@ -240,11 +248,12 @@ def sm_count(index: int) -> int:
 @functools.lru_cache(maxsize=1024)
 def cell_plan(name: str, B: int, I: int, H: int, itemsize: int, sms: int,
               rows: int = 0, rows_per_thread: int = 0,
-              k_split: int = 0) -> CellPlan:
+              k_split: int = 0, M: int = 1) -> CellPlan:
     """The launch plan of a layer call (sizes from :func:`cell_dims`, the
-    input dtype's ``itemsize``) on a card of ``sms`` SMs: the fewest cluster
-    blocks that hold the weights; as few rows a block as keep one wave of
-    blocks on the SMs, at most ``MAX_ROWS``; ``ROWS_PER_THREAD`` of them a
+    input dtype's ``itemsize``, ``M`` clients) on a card of ``sms`` SMs: the
+    fewest cluster blocks that hold the weights; as few rows a block as keep
+    one wave of the ``M x ceil(B / rows) x cluster`` blocks on the SMs, at
+    most ``MAX_ROWS``; ``ROWS_PER_THREAD`` of them a
     thread; ``K_SPLIT`` lanes a column, 2 where 4 would pass
     ``MAX_THREADS``; and the threads that cover the block's columns and
     rows.  ``rows``, ``rows_per_thread`` and ``k_split`` replace the
@@ -252,7 +261,7 @@ def cell_plan(name: str, B: int, I: int, H: int, itemsize: int, sms: int,
     cluster = _cluster(GATES[name], I, H, itemsize)
     hc = _columns(H, cluster)
     if not rows:
-        need = -(-B * cluster // sms)
+        need = -(-M * B * cluster // sms)
         rows = min(MAX_ROWS, 1 << max(0, need - 1).bit_length())
     rpt = rows_per_thread or min(rows, ROWS_PER_THREAD)
     ks = k_split or (K_SPLIT if hc * K_SPLIT * (rows // rpt) <= MAX_THREADS
@@ -270,8 +279,10 @@ def check_inputs(name: str, tensors: Sequence[torch.Tensor],
                  shapes: Sequence[Tuple[int, ...]]) -> None:
     """Raise unless every tensor lies on one CUDA device, has one dtype
     (float32 or bfloat16), has its expected shape and is contiguous, and
-    unless autograd would have to record the launch (the kernels are
-    forward only)."""
+    unless autograd would have to record the launch: a launch itself is
+    forward only, and the wrappers route what autograd records through
+    their ``torch.autograd.Function`` (whose forward runs with grad mode
+    off)."""
     dev, dt = tensors[0].device, tensors[0].dtype
     if dev.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
@@ -289,8 +300,9 @@ def check_inputs(name: str, tensors: Sequence[torch.Tensor],
             raise ValueError(f"{name}: argument {i} is not contiguous")
         if t.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(
-                f"{name}: the CUDA kernel is forward only; run under "
-                "torch.no_grad() or torch.inference_mode()")
+                f"{name}: a direct launch is forward only; call the "
+                "wrapper, whose autograd Function records it, or run under "
+                "torch.no_grad()")
 
 
 def launch(name: str, tensors: Sequence[torch.Tensor],

@@ -5,13 +5,18 @@ unseen consumers with no client-side retraining), on the card.
 Publishes forecaster weights into a :class:`~repro_torch.serving.ModelRegistry`
 and replays unseen-consumer requests through the padded-bucket
 :class:`~repro_torch.serving.ServingEngine`: raw watt-hours in, kWh
-forecasts out.  The weights come from ``--checkpoint`` (an ``.npz`` written
-by either package: a bare param tree or an FL training snapshot) or, without
-it, from a seeded random init.  With ``--clusters k`` the router's k-means
-centroids come from the requesting consumers' daily summaries.
+forecasts out.  Without ``--checkpoint`` it first trains a quick federated
+model (``--train-clients`` buildings, ``--rounds`` rounds, per cluster with
+``--clusters k``) on the same device and publishes each cluster's model,
+routed by the training's k-means centroids.  With ``--checkpoint`` (an
+``.npz`` written by either package: a bare param tree or an FL training
+snapshot) it publishes those weights, and ``--clusters k`` takes the
+router's centroids from the requesting consumers' daily summaries.
+``--int8`` raises: int8 serving weights wait for ROADMAP A7.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --state CA --requests 256
-  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --clusters 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --clusters 2 \
+      --train-clients 8 --rounds 3 --days 14
 """
 from __future__ import annotations
 
@@ -21,12 +26,15 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ForecasterConfig
-from repro_torch.core import clustering
+from repro_torch.configs.base import FLConfig, ForecasterConfig
+from repro_torch.core import clustering, fedavg
 from repro_torch.data import synthetic, windows
 from repro_torch.models import forecaster
-from repro_torch.serving import (GLOBAL_SLOT, ClusterRouter, ModelRegistry,
-                                 ServingEngine, bucket_for)
+# re-exported: chip_smoke.py's serving phase seeds its weights with it, and
+# tools/serve_flush_ab.py runs that phase against trees that keep it here
+from repro_torch.models.layers import seeded_generator  # noqa: F401
+from repro_torch.serving import (ClusterRouter, ModelRegistry, ServingEngine,
+                                 bucket_for)
 
 
 def serve_forecaster(params, cfg: ForecasterConfig, requests: np.ndarray,
@@ -55,55 +63,68 @@ def serve_forecaster(params, cfg: ForecasterConfig, requests: np.ndarray,
     return np.concatenate(outs)
 
 
-def seeded_generator(seed: int, *stream: int) -> torch.Generator:
-    """A CPU ``torch.Generator`` seeded injectively from (seed, *stream)."""
-    state = np.random.SeedSequence([seed, *stream]).generate_state(2)
-    return torch.Generator().manual_seed(
-        int(state[0]) << 32 | int(state[1]))
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--state", default="CA")
+    ap.add_argument("--train-clients", type=int, default=24)
+    ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--requests", type=int, default=256,
                     help="# of held-out consumers sending forecast requests")
     ap.add_argument("--days", type=int, default=120)
     ap.add_argument("--clusters", type=int, default=0,
                     help="k-means clusters (0 = single global model); "
                     "unseen consumers are routed by nearest centroid")
+    ap.add_argument("--int8", action="store_true",
+                    help="serve int8-quantized weights (not ported yet: "
+                    "raises, ROADMAP A7)")
     ap.add_argument("--max-batch", type=int, default=256)
     ap.add_argument("--min-bucket", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint", default=None,
-                    help=".npz weights to publish (either package's format); "
-                    "default: seeded random init")
+                    help=".npz weights to publish (either package's format) "
+                    "instead of training")
     ap.add_argument("--device", default=None,
                     help="cuda when omitted (raises without a card); cpu "
                     "runs the plain cells")
     args = ap.parse_args(argv)
 
     fcfg = ForecasterConfig()
+    registry = ModelRegistry(device=args.device)
+    if args.int8:
+        raise NotImplementedError(
+            "int8 serving weights wait for the counter-based PRNG of ROADMAP "
+            "A7; serve fp32")
     held = synthetic.generate_buildings(
         args.state, list(range(50_000, 50_000 + args.requests)),
         days=args.days)
-    if args.clusters > 1:
-        z = windows.daily_average_vector(held, days=args.days)
-        cents, _, _ = clustering.kmeans(z, args.clusters, seed=args.seed)
-        router = ClusterRouter(cents)
-    else:
-        router = ClusterRouter(None)
 
     # ---- publish the weights into the serving registry
-    registry = ModelRegistry(device=args.device)
     if args.checkpoint:
+        if args.clusters > 1:
+            z = windows.daily_average_vector(held, days=args.days)
+            cents, _, _ = clustering.kmeans(z, args.clusters, seed=args.seed)
+            router = ClusterRouter(cents)
+        else:
+            router = ClusterRouter(None)
         if not registry.poll_checkpoint(args.checkpoint, fcfg):
             raise ValueError(f"no forecaster weights in {args.checkpoint}")
     else:
-        slots = [GLOBAL_SLOT] + list(range(args.clusters if router.enabled
-                                           else 0))
-        for s in slots:
-            registry.publish(forecaster.init_forecaster(
-                seeded_generator(args.seed, s + 1), fcfg), fcfg, slot=s)
+        flcfg = FLConfig(n_clients=args.train_clients,
+                         clients_per_round=args.train_clients,
+                         rounds=args.rounds, n_clusters=args.clusters,
+                         seed=args.seed, lr=0.05,
+                         cluster_days=min(273, int(args.days * 0.75)))
+        print(f"[serve] quick FL fit on {args.train_clients} clients "
+              f"({args.rounds} rounds, clusters={args.clusters or 'off'})")
+        series = synthetic.generate_buildings(
+            args.state, list(range(args.train_clients)), days=args.days)
+        results = fedavg.run_federated_training(series, fcfg, flcfg,
+                                                device=registry.device)
+        # ---- publish the trained models, one slot per cluster
+        for cid, res in results.items():
+            registry.publish(res.params, fcfg, slot=cid,
+                             generation=len(res.loss_history))
+        router = ClusterRouter.from_result(next(iter(results.values())))
     engine = ServingEngine(registry, router, max_batch=args.max_batch,
                            min_bucket=args.min_bucket, device=args.device)
     n_prog = engine.warmup()

@@ -14,6 +14,12 @@ runs each layer over the look-back in one call of the fused CUDA layer
 ``n_layers`` launches per forecast.  ``cell_impl="torch"`` steps through the
 plain cells one time step at a time (``kernels/ref.py::lstm_layer_ref``,
 ``gru_layer_ref``), so the two routes stay independent on the card.
+
+Federated training runs every selected client's forward at once: the
+params are client-stacked (a leading M on every leaf, one model per client)
+and x is (M, B, L, input_dim); each layer is still one launch, with the
+clients on the kernel's grid.  Both routes are differentiable (the kernel's
+backward is the VJP of the plain layer).
 """
 from __future__ import annotations
 
@@ -95,24 +101,51 @@ def params_to_numpy(params) -> Dict:
 
 
 # ------------------------------------------------------------------ forward
-def forecast(params, x, cfg: ForecasterConfig, cell_impl: str = "kernel"):
-    """x: (B, L, input_dim) -> (B, horizon)."""
+def encode(params, x, cfg: ForecasterConfig, cell_impl: str = "kernel"):
+    """The recurrent layers: x (B, L, input_dim) -> the last step's h
+    (B, H).  With client-stacked params (a leading M on every leaf) x is
+    (M, B, L, input_dim) and h (M, B, H): one layer call per layer for all
+    M clients at once."""
     if cell_impl not in CELL_IMPLS:
         raise ValueError(
             f"cell_impl={cell_impl!r}; pick from {CELL_IMPLS}")
-    B, H = x.shape[0], cfg.hidden_dim
-    # time-major and contiguous: the layer's x_seq
-    h_seq = x.transpose(0, 1).contiguous()
+    # time-major and contiguous: the layer's x_seq, (L, B, I) or (M, L, B, I)
+    h_seq = x.transpose(-3, -2).contiguous()
+    h0 = torch.zeros(x.shape[:-3] + (x.shape[-3], cfg.hidden_dim),
+                     dtype=x.dtype, device=x.device)
     for p in params["layers"]:
-        h0 = torch.zeros((B, H), dtype=x.dtype, device=x.device)
         w = (p["wx"], p["wh"], p["b"])
         if cfg.cell == "lstm":
             layer = lstm_layer if cell_impl == "kernel" else ref.lstm_layer_ref
             h_seq, _ = layer(h_seq, h0, h0, *w)
         else:
             layer = gru_layer if cell_impl == "kernel" else ref.gru_layer_ref
-            h_seq = layer(h_seq, h0, *w)                # (L, B, H)
-    return torch.matmul(h_seq[-1], params["head"]["w"]) + params["head"]["b"]
+            h_seq = layer(h_seq, h0, *w)
+    return h_seq.select(-3, -1)
+
+
+def head(params, h_last):
+    """The linear head: (B, H) -> (B, horizon), or per client with stacked
+    params, (M, B, H) -> (M, B, horizon).  A batched ``torch.matmul``: the
+    JAX package leaves the head to XLA, outside its Pallas kernels."""
+    b = params["head"]["b"]
+    return torch.matmul(h_last, params["head"]["w"]) + \
+        (b if b.dim() == 1 else b.unsqueeze(-2))
+
+
+def forecast(params, x, cfg: ForecasterConfig, cell_impl: str = "kernel"):
+    """x: (B, L, input_dim) -> (B, horizon); with client-stacked params,
+    x: (M, B, L, input_dim) -> (M, B, horizon)."""
+    return head(params, encode(params, x, cfg, cell_impl))
+
+
+def loss_fn(params, batch, cfg: ForecasterConfig, loss, cell_impl="kernel",
+            dim=None):
+    """batch: {"x": (B,L,1), "y": (B,horizon)} -> scalar loss; with
+    client-stacked params and (M, ...) batches and ``dim=(-2, -1)``, one
+    loss per client, (M,)."""
+    pred = forecast(params, batch["x"], cfg, cell_impl)
+    return loss(pred, batch["y"], dim=dim)
 
 
 class Forecaster(nn.Module):

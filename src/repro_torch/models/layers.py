@@ -1,7 +1,9 @@
 """Shared building blocks: dense init, RMS norm, RoPE, the SwiGLU MLP and
 token embeddings; the counterpart of ``src/repro/models/layers.py``
 (``layer_norm`` is not ported yet).  Also the numpy -> tensor conversion of
-parameter trees made by the JAX package.
+parameter trees made by the JAX package, ``tree_map`` / ``tree_leaves``
+over such trees, and ``seeded_generator``, the port's counterpart of a
+``jax.random`` key split by stream.
 
 Init draws from an explicit ``torch.Generator`` on the generator's own
 device: a CPU generator gives the same weights whichever device they are
@@ -12,6 +14,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def seeded_generator(seed: int, *stream: int) -> torch.Generator:
+    """A CPU ``torch.Generator`` seeded injectively from (seed, *stream)."""
+    state = np.random.SeedSequence([seed, *stream]).generate_state(2)
+    return torch.Generator().manual_seed(
+        int(state[0]) << 32 | int(state[1]))
 
 
 def dense_init(generator: torch.Generator, in_dim, out_dim, scale=None,
@@ -88,14 +97,36 @@ def embed(embed_tokens, tokens, dtype):
 def tree_from_numpy(tree, device="cpu"):
     """A tree of dicts and lists of numpy arrays (e.g. ``jax.tree.map(
     np.asarray, params)``) -> the same tree of tensors on ``device``,
-    layouts and dtypes unchanged.  bfloat16 arrays (numpy has no native
+    layouts and dtypes unchanged (tensor leaves are moved there).  bfloat16 arrays (numpy has no native
     bfloat16) cross as a 16-bit view."""
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [tree_from_numpy(v, device) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device)
     a = np.asarray(tree)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16).copy())
         return t.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a tree of dicts and lists (and of ``rest``,
+    trees of the same structure), as ``jax.tree.map``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree):
+    """The leaves of a tree of dicts and lists, in :func:`tree_map`'s
+    order."""
+    out = []
+    tree_map(out.append, tree)
+    return out

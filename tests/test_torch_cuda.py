@@ -14,7 +14,9 @@ import dataclasses  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ForecasterConfig  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.core import losses  # noqa: E402
+from repro_torch.core.client import local_update  # noqa: E402
+from repro_torch.kernels import lstm_cell, ops, ref  # noqa: E402
 from repro_torch.launch import lm_steps  # noqa: E402
 from repro_torch.models import forecaster  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -135,11 +137,14 @@ def test_layer_wrappers_refuse_bad_inputs(cuda):
                       wx, wh, b)),                            # not contiguous
         (ValueError, (x, h, c.cpu(), wx, wh, b)),             # device mix
         (TypeError, (x, h.bfloat16(), c, wx, wh, b)),         # dtype mix
-        (RuntimeError, (x, h, c, wx, wh.clone().requires_grad_(), b)),
     ]
     for exc, args in cases:
         with pytest.raises(exc):
             ops.lstm_layer(*args)
+    # a direct launch is forward only (the wrapper's autograd Function
+    # records it instead)
+    with pytest.raises(RuntimeError, match="forward only"):
+        lstm_cell._launch(x, h, c, wx, wh.clone().requires_grad_(), b)
     gx, gh, _, gwx, gwh, gb = _layer_args(g, cuda, torch.float32, 2, 4, 1,
                                           512, 3)
     with pytest.raises(ValueError):
@@ -161,7 +166,6 @@ def test_wrappers_refuse_bad_inputs(cuda):
         (ValueError, (x, h, c, wx, wh[:, :-1].contiguous(), b)),
         (ValueError, (x, h, c, wx.t().contiguous().t(), wh, b)),
         (ValueError, (x, h.cpu(), c, wx, wh, b)),             # device mix
-        (RuntimeError, (x, h, c, wx.clone().requires_grad_(), wh, b)),
         (ValueError, (x, r(B, 512), r(B, 512), r(I, 2048), r(512, 2048),
                       r(2048))),                              # out of range
     ]
@@ -170,9 +174,15 @@ def test_wrappers_refuse_bad_inputs(cuda):
             ops.lstm_cell_fused(args[0], args[1], args[2],
                                 {"wx": args[3], "wh": args[4], "b": args[5]})
     assert ops.launch_counts()["lstm_cell"] == 0
-    with torch.no_grad():                                     # forward only
+    with torch.no_grad():
         ops.lstm_cell_fused(x, h, c, {"wx": wx, "wh": wh, "b": b})
     assert ops.launch_counts()["lstm_cell"] == 1
+    # where autograd records, the step goes through the layer's Function:
+    # one launch, and a result that carries its backward
+    h1, _ = ops.lstm_cell_fused(x, h, c, {"wx": wx.clone().requires_grad_(),
+                                          "wh": wh, "b": b})
+    assert h1.grad_fn is not None
+    assert ops.launch_counts()["lstm_cell"] == 2
 
 
 @pytest.mark.parametrize("cell,n_layers", [("lstm", 1), ("gru", 2)])
@@ -307,3 +317,124 @@ def test_lm_prefill_and_decode_kernel_route_match_plain(cuda):
                     [plain["prefill_logits"]] + plain["logits"]):
         bound = 3e-2 * max(float(b.float().abs().max()), 1.0)
         assert float((a.float() - b.float()).abs().max()) < bound
+
+
+# ------------------------------------- the client axis (federated training)
+def _client_args(g, dev, dt, M, T, B, I, H, gates):
+    r = lambda *s: _rand(g, dev, dt, *s)  # noqa: E731
+    return (r(M, T, B, I), r(M, B, H), r(M, B, H), r(M, I, gates * H),
+            r(M, H, gates * H), r(M, gates * H))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("M,B,I,H", [
+    (1, 64, 1, 64), (3, 64, 1, 64), (100, 64, 1, 64),   # the training shape
+    (100, 64, 64, 64),                                  # GRU's second layer
+    (3, 61, 1, 64),                                     # a prime B
+    (3, 64, 4, 128), (3, 32, 16, 256),                  # the cluster shapes
+])
+def test_client_axis_layers_match_plain(cuda, M, B, I, H, dt):
+    """Each layer kernel with M clients, each with its own weights, against
+    the plain layer with the client axis (T = 8): every step's h and the
+    LSTM's last c; one launch for all M clients."""
+    g = torch.Generator().manual_seed(M * 7 + B + I + H)
+    x, h, c, wx, wh, b = _client_args(g, cuda, dt, M, 8, B, I, H, 4)
+    ops.reset_launch_counts()
+    got = ops.lstm_layer(x, h, c, wx, wh, b)
+    want = ref.lstm_layer_ref(x, h, c, wx, wh, b)
+    fused = ref.lstm_layer_ref(x, h, c, wx, wh, b, fp32_sums=True)
+    x, h, _, wx, wh, b = _client_args(g, cuda, dt, M, 8, B, I, H, 3)
+    got_g = ops.gru_layer(x, h, wx, wh, b)
+    want_g = ref.gru_layer_ref(x, h, wx, wh, b)
+    fused_g = ref.gru_layer_ref(x, h, wx, wh, b, fp32_sums=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"lstm_cell": 1, "gru_cell": 1,
+                                   "flash_attention": 0}
+    for a, w, f in ((got[0], want[0], fused[0]), (got[1], want[1], fused[1]),
+                    (got_g, want_g, fused_g)):
+        assert a.dtype == dt and a.shape == w.shape and a.is_cuda
+        torch.testing.assert_close(a.float(), w.float(), rtol=LAYER_TOL[dt],
+                                   atol=LAYER_TOL[dt])
+        torch.testing.assert_close(a.float(), f.float(), rtol=TOL[dt],
+                                   atol=TOL[dt])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=str)
+def test_one_client_is_byte_identical_to_the_unbatched_call(cuda, dt):
+    """M = 1 with a leading client axis launches the same plan on the same
+    bytes as the unbatched call (the serving path): equal bits."""
+    g = torch.Generator().manual_seed(21)
+    x, h, c, wx, wh, b = _client_args(g, cuda, dt, 1, 8, 256, 1, 64, 4)
+    one = ops.lstm_layer(x, h, c, wx, wh, b)
+    flat = ops.lstm_layer(x[0], h[0], c[0], wx[0], wh[0], b[0])
+    assert torch.equal(one[0][0], flat[0]) and torch.equal(one[1][0], flat[1])
+    x, h, _, wx, wh, b = _client_args(g, cuda, dt, 1, 8, 256, 64, 64, 3)
+    assert torch.equal(ops.gru_layer(x, h, wx, wh, b)[0],
+                       ops.gru_layer(x[0], h[0], wx[0], wh[0], b[0]))
+
+
+@pytest.mark.parametrize("name", ["lstm", "gru"])
+def test_layer_function_gradients_match_plain(cuda, name):
+    """The autograd Function at the training shape (M = 100, B = 64, T = 8,
+    H = 64, fp32): the kernel's outputs and the gradients of every input
+    that needs one, against autograd through the plain layer, within 2e-5
+    of each gradient's largest magnitude."""
+    g = torch.Generator().manual_seed(5)
+    G = 4 if name == "lstm" else 3
+    x, h, c, wx, wh, b = _client_args(g, cuda, torch.float32, 100, 8, 64, 1,
+                                      64, G)
+    h = torch.zeros_like(h)                    # a zero h0 that needs no grad
+    args = (x, h, c, wx, wh, b) if G == 4 else (x, h, wx, wh, b)
+    fn = ops.lstm_layer if G == 4 else ops.gru_layer
+    plain = ref.lstm_layer_ref if G == 4 else ref.gru_layer_ref
+    w = torch.randn(100, 8, 64, 64, generator=g).to(cuda)
+
+    def grads(f):
+        leaves = [t.clone().requires_grad_(t is not h) for t in args]
+        out = f(*leaves)
+        out = out[0] if G == 4 else out
+        wanted = [t for t in leaves if t.requires_grad]
+        return out.detach(), torch.autograd.grad((out * w).sum(), wanted)
+
+    ops.reset_launch_counts()
+    out, got = grads(fn)
+    assert ops.launch_counts()[f"{name}_cell"] == 1
+    want_out, want = grads(plain)
+    torch.testing.assert_close(out, want_out, rtol=2e-5, atol=2e-5)
+    assert len(got) == len(args) - 1
+    for a, bb in zip(got, want):
+        scale = float(bb.abs().max())
+        assert float((a - bb).abs().max()) <= 2e-5 * scale
+
+
+@pytest.mark.parametrize("cell,n_layers", [("lstm", 1), ("gru", 2)])
+def test_local_update_on_card_both_routes(cuda, cell, n_layers):
+    """One local update of 3 clients on the card: the kernel route (one
+    launch per layer per step) against the plain route on the card and the
+    CPU, at the reference's local-update tolerance."""
+    cfg = ForecasterConfig(cell=cell, n_layers=n_layers)
+    params = forecaster.init_forecaster(torch.Generator().manual_seed(2), cfg)
+    r = np.random.default_rng(3)
+    x = torch.from_numpy(r.random((3, 200, 8, 1)).astype(np.float32))
+    y = torch.from_numpy(r.random((3, 200, 4)).astype(np.float32))
+    bidx = torch.from_numpy(r.integers(0, 200, (3, 4, 64)))
+    loss = losses.make_loss("ew_mse", 2.0)
+    on = lambda t: t.to(cuda)  # noqa: E731
+    card_params = {"layers": [{k: on(v) for k, v in p.items()}
+                              for p in params["layers"]],
+                   "head": {k: on(v) for k, v in params["head"].items()}}
+    ops.reset_launch_counts()
+    kern, kl = local_update(card_params, on(x), on(y), on(bidx), 0.05, cfg,
+                            loss, "kernel", 0.1)
+    assert ops.launch_counts()[f"{cell}_cell"] == 4 * n_layers
+    plain, pl = local_update(card_params, on(x), on(y), on(bidx), 0.05, cfg,
+                             loss, "torch", 0.1)
+    cpu, cl = local_update(params, x, y, bidx, 0.05, cfg, loss, "kernel", 0.1)
+    for other, ol in ((plain, pl), (cpu, cl)):
+        torch.testing.assert_close(kl.cpu(), ol.cpu(), rtol=1e-5, atol=0)
+        for a, b in zip(forecaster.params_to_numpy(kern)["layers"] +
+                        [forecaster.params_to_numpy(kern)["head"]],
+                        forecaster.params_to_numpy(other)["layers"] +
+                        [forecaster.params_to_numpy(other)["head"]]):
+            for k in a:
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-4, atol=1e-5)

@@ -32,6 +32,17 @@ JCFG, CFG = JaxForecasterConfig(), ForecasterConfig()
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test process: the suite runs in several
+    worker processes at once, and torch's thread pool in each of them
+    would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jparams(i):
     return jfc.init_forecaster(jax.random.PRNGKey(i), JCFG)
 
@@ -261,8 +272,47 @@ def test_serve_main_on_cpu_from_a_jax_checkpoint(tmp_path, capsys):
     assert all(np.isfinite(t.result).all() for t in tickets)
     assert "12 forecasts" in capsys.readouterr().out
     tickets = tserve.main(["--device", "cpu", "--requests", "6", "--days",
-                           "3", "--clusters", "2", "--max-batch", "8"])
+                           "3", "--clusters", "2", "--max-batch", "8",
+                           "--train-clients", "6", "--rounds", "2"])
     assert {t.slot for t in tickets} <= {0, 1}
+
+
+def test_serve_main_trains_then_serves_the_trained_models(monkeypatch,
+                                                          capsys):
+    """Without a checkpoint, serve first trains (the port's
+    ``run_federated_training``) and publishes each cluster's model at the
+    generation of its rounds, routed by the training's centroids; --int8
+    raises, naming ROADMAP A7."""
+    published = []
+    real = tsv.ModelRegistry.publish
+
+    def spy(self, params, cfg, **kw):
+        published.append((kw["slot"], kw["generation"],
+                          tfc.params_to_numpy(tfc.params_from_numpy(params))))
+        return real(self, params, cfg, **kw)
+
+    monkeypatch.setattr(tsv.ModelRegistry, "publish", spy)
+    tickets = tserve.main(["--device", "cpu", "--requests", "10", "--days",
+                           "4", "--clusters", "2", "--max-batch", "8",
+                           "--train-clients", "6", "--rounds", "2"])
+    assert "quick FL fit on 6 clients" in capsys.readouterr().out
+    assert sorted(s for s, _, _ in published) == [0, 1]
+    assert all(g == 2 for _, g, _ in published)
+    assert {t.slot for t in tickets} <= {0, 1}
+    assert all(np.isfinite(t.result).all() for t in tickets)
+    # the published weights are the training's result
+    series = tsyn.generate_buildings("CA", list(range(6)), days=4)
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import fedavg as tfed
+    res = tfed.run_federated_training(
+        series, CFG, FLConfig(n_clients=6, clients_per_round=6, rounds=2,
+                              n_clusters=2, lr=0.05, cluster_days=3),
+        device=CPU)
+    for slot, _, params in published:
+        jax.tree.map(np.testing.assert_array_equal, params, res[slot].params)
+    with pytest.raises(NotImplementedError, match="A7"):
+        tserve.main(["--device", "cpu", "--requests", "2", "--days", "3",
+                     "--int8"])
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

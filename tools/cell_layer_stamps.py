@@ -79,7 +79,8 @@ def main():
         fn = getattr(lib, f"repro_{name}_f32")
         fn.argtypes = _cuda._ARGTYPES[name] + [ctypes.c_void_p]
         for _ in range(args.launches):
-            err = fn(*[t.data_ptr() for t in ins], T, B, I, H, *plan, stream)
+            err = fn(*[t.data_ptr() for t in ins], 1, T, B, I, H, *plan,
+                     stream)
             if err:
                 sys.exit(f"cell_layer_stamps: {name} launch failed ({err})")
         torch.cuda.synchronize()
