@@ -6,15 +6,19 @@ holds each against its plain PyTorch version on the card, drives the
 forecast-serving path end to end (registry -> router -> bucketed engine ->
 fused recurrent layers, one launch per layer) at the paper forecaster's
 full width for the LSTM and a 2-layer GRU, checks the results against the
-same engine on the CPU, profiles one full flush, times the kernels at their
-paths' shapes beside cuDNN's sequence calls, drives the dense-LM prefill
+same engine on the CPU (the LSTM also from int8 weights, whose grids must
+equal the CPU publish's bit for bit), profiles one full flush, times the
+kernels at their paths' shapes beside cuDNN's sequence calls, drives the dense-LM prefill
 and decode steps at qwen3-14b's full width (8 of its 40 layers) through the
 flash attention kernel (bf16: wgmma on the tensor cores fed by TMA; fp32:
 the CUDA-core kernel), holds them against the plain attention route, then
 trains the forecaster federatedly (the paper's Algorithm 1: 100 clients x
 365 days, every local step's forward one launch of the layer kernel for
 all clients, its backward the plain layer's VJP) on the kernel route
-against the plain route, and ends with one JSON status line.
+against the plain route, trains the same setting again under the privacy
+pipeline (clip, DP noise, the 8-bit ring quantizer and secure aggregation:
+ring-masked == clear bit for bit, epsilon, the stage's device time), and
+ends with one JSON status line.
 
     python3 chip_smoke.py [--seed N]
 
@@ -330,18 +334,19 @@ def check_client_axis(seed):
 
 
 # --------------------------------------------------------------- phase 3
-def serve_slice(cfg, seed, launches_per_flush=None):
+def serve_slice(cfg, seed, launches_per_flush=None, int8=False):
     """Serve REQUESTS_PER_CONSUMER requests from each of CONSUMERS synthetic
     CA consumers on the card and on the CPU, then profile one more full
     (max_batch) flush on the card.  Returns the card run's launches of the
     config's cell, its flushes, the mean wall time of a full flush and the
     profile.  With ``launches_per_flush`` the run must have launched the
     config's cell exactly that many times a flush, and the other cell
-    never."""
+    never.  With ``int8`` the same stream is served again from int8
+    weights (``_serve_int8``)."""
     import numpy as np
     import torch
     from repro_torch import serving as sv
-    from repro_torch.core import clustering
+    from repro_torch.core import clustering, prng
     from repro_torch.data import synthetic, windows
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import seeded_generator
@@ -366,14 +371,20 @@ def serve_slice(cfg, seed, launches_per_flush=None):
             stream.append((int(c), hist[c, end - L:end],
                            hist[c] if k == 0 else None))
 
-    def run(device):
+    # int8: each slot rounded under fold_in(qroot, slot + 1), the root
+    # folded from the seed as launch/serve.py folds it
+    qroot = prng.fold_in(prng.PRNGKey(seed), 0)
+
+    def run(device, weights="fp32"):
         reg = sv.ModelRegistry(device=device)
         for s in slots:
-            reg.publish(params[s], cfg, slot=s, generation=1)
+            reg.publish(params[s], cfg, slot=s, generation=1, weights=weights,
+                        key=(None if weights == "fp32" else
+                             prng.fold_in(qroot, s + 1)))
         eng = sv.ServingEngine(reg, sv.ClusterRouter(cents), max_batch=256,
                                min_bucket=8, device=device)
         eng.warmup()
-        if device == "cuda":
+        if device == "cuda" and weights == "fp32":
             h = reg.handle(0)
             leaves = [t for p in h.params["layers"] for t in p.values()] + \
                 list(h.params["head"].values())
@@ -391,6 +402,16 @@ def serve_slice(cfg, seed, launches_per_flush=None):
         counts = ops.launch_counts()
         return eng, tickets, last, counts
 
+    def worst_over_tol(card, cpu):
+        """Card vs CPU tickets: the worst error over rtol 1e-4 and atol
+        1e-4*(hi-lo)."""
+        worst = 0.0
+        for a, b in zip(card, cpu):
+            err = np.abs(a.result - b.result)
+            worst = max(worst, float((err / (1e-4 * np.abs(b.result)
+                                             + 1e-4 * (b.hi - b.lo))).max()))
+        return worst
+
     t0 = time.perf_counter()
     eng, tickets, last, counts = run("cuda")
     card_s = time.perf_counter() - t0
@@ -406,12 +427,7 @@ def serve_slice(cfg, seed, launches_per_flush=None):
         require(counts[name] == expect and counts[other] == 0,
                 f"launch counts {counts}, expected {name}={expect} "
                 f"(= {st.flushes} flushes x {launches_per_flush})")
-    worst = 0.0
-    for a, b in zip(tickets, cpu_tickets):
-        scale = b.hi - b.lo
-        err = np.abs(a.result - b.result)
-        worst = max(worst, float((err / (1e-4 * np.abs(b.result)
-                                         + 1e-4 * scale)).max()))
+    worst = worst_over_tol(tickets, cpu_tickets)
     require(worst <= 1.0, f"card vs CPU engine disagree: worst error is "
             f"{worst:.3g}x the tolerance (rtol 1e-4, atol 1e-4*(hi-lo))")
     flushes, full = st.flushes, st.flushes - len(last)
@@ -440,8 +456,71 @@ def serve_slice(cfg, seed, launches_per_flush=None):
         profile["device_share_of_mean_full_flush_wall"] = \
             profile["device_ms_per_step"] / (full_wall * 1e3)
     emit({**served, "full_flush_profile": profile})
-    return {"launches": counts[name], "flushes": flushes,
-            "full_flush_wall_s": full_wall, "profile": profile}
+    out = {"launches": counts[name], "flushes": flushes,
+           "full_flush_wall_s": full_wall, "profile": profile}
+    if int8:
+        out["int8_launches"] = _serve_int8(cfg, run, worst_over_tol, tickets,
+                                           name, launches_per_flush)
+    return out
+
+
+def _serve_int8(cfg, run, worst_over_tol, fp32_tickets, name,
+                launches_per_flush):
+    """Phase 3's stream again from int8 weights, on the card and on the
+    CPU: the card's int8 handles must hold only int8 grids and fp32 scales
+    on the card, equal bit for bit to the CPU publish's; the forecasts must
+    match the CPU int8 engine at phase 3's tolerance.  Prints the MAPE gap
+    between the fp32 and int8 forecasts on the card.  Returns the card
+    run's launches of the config's cell."""
+    import numpy as np
+    import torch
+    from repro_torch.models.layers import tree_leaves
+
+    t0 = time.perf_counter()
+    eng, tickets, last, counts = run("cuda", "int8")
+    card_s = time.perf_counter() - t0
+    cpu_eng, cpu_tickets, _, _ = run("cpu", "int8")
+    reg, cpu_reg = eng.registry, cpu_eng.registry
+    n_bytes = 0
+    for s in reg.slots():
+        h, ch = reg.handle(s), cpu_reg.handle(s)
+        require(h.weights == "int8", f"slot {s} served {h.weights}")
+        for a, b in zip(tree_leaves(h.params), tree_leaves(ch.params)):
+            require(a.is_cuda and (a.dtype == torch.int8 or
+                                   (a.dtype == torch.float32
+                                    and a.dim() == 0)),
+                    f"int8 handle of slot {s} holds {a.dtype} "
+                    f"{tuple(a.shape)} on {a.device}")
+            require(torch.equal(a.cpu(), b),
+                    f"int8 publish of slot {s}: card and CPU differ")
+            n_bytes += a.numel() * a.element_size()
+    require(all(t.done and np.isfinite(t.result).all() for t in tickets),
+            "int8: some requests not served or not finite")
+    worst = worst_over_tol(tickets, cpu_tickets)
+    require(worst <= 1.0, f"int8 card vs CPU engine disagree: worst error "
+            f"is {worst:.3g}x the tolerance")
+    flushes = eng.stats.flushes
+    if launches_per_flush is not None:
+        require(counts[name] == flushes * launches_per_flush,
+                f"int8 launch counts {counts}, expected {name}="
+                f"{flushes * launches_per_flush}")
+    f32 = np.stack([t.result for t in fp32_tickets])
+    i8 = np.stack([t.result for t in tickets])
+    gap = float(np.mean(np.abs(i8 - f32) / np.maximum(np.abs(f32), 1e-6)))
+    require(gap < 0.02, f"int8 vs fp32 forecasts: MAPE gap {gap:.4f} "
+            "exceeds the reference's 2 % bound")
+    emit({"phase": "serve_int8", "cfg": dataclasses.asdict(cfg),
+          "requests": len(tickets), "flushes": flushes,
+          "launches": counts, "int8_handle_bytes_per_slot":
+              n_bytes // len(reg.slots()),
+          "q_and_scale_card_equal_cpu": True,
+          "card_vs_cpu_worst_over_tol": worst,
+          "fp32_vs_int8_mape_pct": 100.0 * gap,
+          "mean_full_flush_wall_ms": 1e3 * (
+              eng.stats.busy_s - sum(f.wall_s for f in last))
+          / (flushes - len(last)),
+          "busy_s": eng.stats.busy_s, "run_s": card_s})
+    return counts[name]
 
 
 # --------------------------------------------------------------- phase 4
@@ -1137,7 +1216,228 @@ def train_slice(seed):
                    "heldout_buildings": len(held_ids),
                    "heldout": {k: gheld[k] for k in
                                ("accuracy", "mape", "rmse")}}})
-    return {"lstm_cell": want_train, "gru_cell": gcounts["gru_cell"]}
+    return ({"lstm_cell": want_train, "gru_cell": gcounts["gru_cell"]},
+            {"wall_s_per_round": summary["wall_s_per_round"],
+             "accuracy": held["accuracy"]})
+
+
+# --------------------------------------------------------------- phase 7
+# train-lstm with the privacy pipeline: phase 6's setting (launch/train.py's
+# defaults, 3 rounds) under per-client L2 clip 1.0, Gaussian noise z = 0.5,
+# 8-bit quantization and secure aggregation, so the ring quantizer is on
+# (the DP + quantize + secure-agg flags of benchmarks/bench_scalability.py,
+# its usage lines 57-59); ring_levels(8, 100, 2.0) = 9 levels
+DP = dict(dp_clip=1.0, dp_noise=0.5, quantize_bits=8, secure_agg=True)
+
+
+def _round0(engine, provider, flcfg, seed, steps):
+    """Round 0's selection, minibatch indices and data on the card, drawn
+    as run_federated_training draws them."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fedavg
+    from repro_torch.data import partition
+
+    holdout_rng, rng = fedavg._seed_rngs(seed)
+    train_ids, _ = partition.holdout_clients(holdout_rng, provider.n_clients,
+                                             flcfg.holdout_frac)
+    counts = provider.train_counts.astype(np.float32)
+    m = min(flcfg.clients_per_round, len(train_ids))
+    sel = engine.select(rng, train_ids, m, 0, counts[train_ids])
+    bidx = partition.ragged_minibatch_indices(rng, counts[sel], steps,
+                                              flcfg.batch_size)
+    x, y, w = provider.round_batch(sel)
+    wt = torch.from_numpy(w).cuda()
+    if not engine.weighted:
+        wt = (wt > 0).float()
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(),
+            torch.from_numpy(bidx).cuda(), wt)
+
+
+def _stage_split(engine, params, locals_, client_loss, w, reps=5):
+    """The transform -> mask -> decode stage of one round (round 0's keys)
+    in its three parts, with a CUDA event after each: the deltas with
+    clip, noise and the ring quantizer; the pairwise masker; the unweighted
+    sum, ring wrap and decode.  Its output must equal
+    ``fedavg.transform_and_aggregate``'s bit for bit.  Returns the device
+    ms of each part (median of ``reps``) and the stage's host wall."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fedavg, secure_agg, transforms
+    from repro_torch.models.layers import tree_leaves, tree_map
+
+    stack = engine.stack
+    M = w.shape[0]
+    keys = engine.round_keys(0, M)
+    rk = engine.base_round_key(0)
+    ctx = secure_agg.CohortContext(torch.arange(M, device=w.device), w, rk)
+    front = transforms.TransformStack(stack.transforms[:-1])
+    masker = stack.transforms[-1]
+    bits, sens, head = stack.ring_spec
+    scale = transforms.ring_scale(bits, sens, M, head)
+
+    def run(ev):
+        ev[0].record()
+        up = front(tree_map(lambda l, g: l - g, locals_, params), keys, ctx)
+        ev[1].record()
+        up = masker(up, None, ctx)
+        ev[2].record()
+        agg = tree_map(lambda g, d: g + scale * transforms.ring_wrap(
+            d.sum(0), bits), params, up)
+        ev[3].record()
+        return agg
+
+    want, _ = fedavg.transform_and_aggregate(params, locals_, client_loss, w,
+                                             keys, stack, rk)
+    parts, walls = [], []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(ev)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    require(all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                  tree_leaves(want))),
+            "the timed stage differs from transform_and_aggregate")
+    med = np.median(np.array(parts), axis=0).tolist()
+    return {"device_ms": dict(zip(("clip_noise_quantize", "mask",
+                                   "sum_wrap_decode"), med)),
+            "device_ms_total": sum(med), "wall_ms": float(np.median(walls)),
+            "median_of": reps}
+
+
+def train_dp_slice(seed, phase6):
+    """Federated training with the privacy pipeline on the card (phase 7).
+    The main path: ``run_federated_training`` at phase 6's setting plus
+    ``DP`` on the kernel route for TRAIN_ROUNDS rounds, then evaluation on
+    the 200 held-out buildings; its LSTM launches must be rounds x local
+    steps in training and one per 8192-window batch in evaluation.  Then
+    (a) one round's aggregate with masking equals it with the ring
+    quantizer and no masking, bit for bit; (b) with clip + noise only, the
+    kernel and plain routes agree after CHECK_ROUNDS rounds at phase 6's
+    tolerances; (c) under the full stack one round's aggregates of the two
+    routes differ by at most one ring grid step per coordinate; (d) the
+    held-out numbers are finite; (e) epsilon at delta 1e-5 from the
+    central secure-agg accountant; (f) the wall per round beside phase
+    6's, and the device time of the transform, mask and decode stage.
+    Returns the main path's LSTM launches."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.core import fedavg, transforms
+    from repro_torch.core.client import local_update
+    from repro_torch.data import partition, synthetic, windows
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.layers import seeded_generator, tree_leaves
+
+    args, fcfg, base = train.configs(["--rounds", str(TRAIN_ROUNDS),
+                                      "--seed", str(seed)])
+    flcfg = dataclasses.replace(base, **DP)
+    series = synthetic.generate_buildings(args.state, list(range(
+        args.clients)), days=args.days)
+    provider = fedavg._as_provider(series, fcfg)
+    steps = partition.local_steps(provider.n_win_max, args.batch_size,
+                                  args.local_epochs)
+    held = synthetic.generate_buildings(
+        args.state, list(range(10_000, 10_000 + args.heldout)),
+        days=args.days)
+    hx, hy, hstats = windows.flatten_test_windows(
+        windows.batched_client_windows(held, fcfg.lookback, fcfg.horizon))
+
+    # ---- the main path
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fedavg.run_federated_training(provider, fcfg, flcfg, device="cuda")
+    train_s = time.perf_counter() - t0
+    r = res[-1]
+    held_m = fedavg.evaluate_global(r.params, hx, hy, fcfg, stats=hstats,
+                                    device="cuda")
+    counts = ops.launch_counts()
+    want_train = TRAIN_ROUNDS * steps * fcfg.n_layers
+    want_eval = math.ceil(hx.shape[0] / EVAL_BATCH)
+    require(counts == {"lstm_cell": want_train + want_eval, "gru_cell": 0,
+                       "flash_attention": 0},
+            f"phase 7 launch counts {counts}, expected lstm_cell = "
+            f"{TRAIN_ROUNDS} x {steps} + {want_eval}")
+    hist = r.loss_history
+    require(np.isfinite(hist).all(), f"DP training loss {hist}")
+    held_m = {k: held_m[k] for k in ("accuracy", "mape", "rmse")}
+    require(all(np.isfinite(v) for v in held_m.values())
+            and 0 <= held_m["accuracy"] <= 100, f"held-out {held_m}")
+    priv = r.privacy
+    require(priv["mode"] == "central:secure-agg" and priv["enabled"]
+            and np.isfinite(priv["epsilon"]) and priv["delta"] == 1e-5,
+            f"accountant {priv}")
+
+    # ---- (a) masked == clear, (c) routes under the full stack, (f) stage
+    engine = fedavg.RoundEngine(fcfg, flcfg, device="cuda")
+    clear = transforms.make_stack(dataclasses.replace(
+        flcfg.transform, quantize_ring=True))
+    require(clear.ring_spec == engine.stack.ring_spec
+            and not any(getattr(t, "is_masker", False)
+                        for t in clear.transforms), "clear stack")
+    params, _ = engine.init(seeded_generator(seed, 0))
+    x, y, bidx, w = _round0(engine, provider, flcfg, seed, steps)
+    keys, rk = engine.round_keys(0, w.shape[0]), engine.base_round_key(0)
+    loc = {}
+    for impl in ("kernel", "torch"):
+        loc[impl] = local_update(params, x, y, bidx, flcfg.lr, fcfg,
+                                 engine.loss, impl, engine.prox_mu)
+    agg = {}
+    for name, stack, impl in (("masked", engine.stack, "kernel"),
+                              ("clear", clear, "kernel"),
+                              ("masked_plain", engine.stack, "torch")):
+        with torch.no_grad():
+            agg[name] = fedavg.transform_and_aggregate(
+                params, *loc[impl], w, keys, stack, rk)
+    require(all(t.is_cuda for t in tree_leaves(agg["masked"][0])),
+            "aggregate not on the card")
+    equal = torch.equal(agg["masked"][1], agg["clear"][1]) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(agg["masked"][0]),
+                                          tree_leaves(agg["clear"][0])))
+    require(equal, "ring-masked aggregate differs from the clear one")
+    bits, sens, head = engine.stack.ring_spec
+    grid = transforms.ring_scale(bits, sens, w.shape[0], head)
+    diffs = [(a - b).abs() for a, b in zip(
+        tree_leaves(agg["masked"][0]), tree_leaves(agg["masked_plain"][0]))]
+    steps_off = max(float(d.max()) for d in diffs) / grid
+    require(steps_off <= 1.0 + 1e-3, f"full stack: kernel vs plain route "
+            f"aggregates differ by {steps_off:.3g} grid steps")
+    with torch.no_grad():
+        stage = _stage_split(engine, params, *loc["kernel"], w)
+
+    # ---- (b) clip + noise, both routes, CHECK_ROUNDS rounds
+    cn = dataclasses.replace(flcfg, rounds=CHECK_ROUNDS, quantize_bits=0,
+                             secure_agg=False)
+    kern = fedavg.run_federated_training(provider, fcfg, cn, device="cuda")
+    plain = fedavg.run_federated_training(provider, fcfg, cn,
+                                          cell_impl="torch", device="cuda")
+    dev = _route_deviation(kern, plain)
+    require(max(dev.values()) <= 1.0, f"clip + noise: kernel vs plain {dev}")
+
+    emit({"phase": "train_dp", "cfg": dataclasses.asdict(fcfg),
+          "clients": args.clients, "days": args.days,
+          "rounds": TRAIN_ROUNDS, "privacy_knobs": DP,
+          "ring": {"bits": bits, "levels": transforms.ring_levels(
+              bits, w.shape[0], head), "grid_step": grid},
+          "local_steps_per_round": steps,
+          "wall_s_per_round": train_s / TRAIN_ROUNDS,
+          "phase6_wall_s_per_round": phase6["wall_s_per_round"],
+          "loss_history": hist.tolist(), "heldout": held_m,
+          "phase6_heldout_accuracy": phase6["accuracy"],
+          "epsilon": priv["epsilon"], "delta": priv["delta"],
+          "accountant": priv, "eps_history": r.eps_history.tolist(),
+          "launches": counts, "masked_equals_clear_bitwise": equal,
+          "clip_noise_kernel_vs_plain": dev,
+          "full_stack_kernel_vs_plain_grid_steps": steps_off,
+          "full_stack_coords_differing": int(sum(
+              int((d > 0).sum()) for d in diffs)),
+          "stage": stage})
+    return counts["lstm_cell"]
 
 
 def _device_profile(run, steps):
@@ -1266,11 +1566,13 @@ def main():
 
     # ---- phase 3: the serving slice, LSTM then 2-layer GRU: one launch of
     # the layer kernel per layer per flush
-    launches, wall = {}, {}
+    launches, wall, int8_launches = {}, {}, {}
     for cfg in (ForecasterConfig(), ForecasterConfig(cell="gru", n_layers=2)):
         name = f"{cfg.cell}_cell"
-        served = serve_slice(cfg, args.seed, launches_per_flush=cfg.n_layers)
+        served = serve_slice(cfg, args.seed, launches_per_flush=cfg.n_layers,
+                             int8=cfg.cell == "lstm")
         launches[name] = served["launches"]
+        int8_launches[name] = served.get("int8_launches", 0)
         wall[name] = served["full_flush_wall_s"]
         require(launches[name] > 0, f"{name} never launched on its path")
 
@@ -1287,9 +1589,14 @@ def main():
 
     # ---- phase 6: federated training, LSTM at ForecasterConfig() then the
     # 2-layer GRU: one launch per layer per local step for all clients
-    train_launches = train_slice(args.seed)
+    train_launches, phase6 = train_slice(args.seed)
     for n, k in train_launches.items():
         require(k > 0, f"{n} never launched on the training path")
+
+    # ---- phase 7: phase 6's LSTM training under clip, DP noise, the 8-bit
+    # ring quantizer and secure aggregation
+    dp_launches = train_dp_slice(args.seed, phase6)
+    require(dp_launches > 0, "lstm_cell never launched on the DP path")
 
     replaces = {"lstm_cell": "src/repro/kernels/lstm_cell.py:24",
                 "gru_cell": "src/repro/kernels/gru_cell.py:17",
@@ -1304,7 +1611,10 @@ def main():
             return {}
         tt = train_times[n]
         more = {"launches_by_path": {"serve": launches[n],
-                                     "train": train_launches[n]},
+                                     "serve_int8": int8_launches[n],
+                                     "train": train_launches[n],
+                                     "train_dp": (dp_launches
+                                                  if n == "lstm_cell" else 0)},
                 "train_shape": {
                     "M": tt["M"], "B": tt["B"], "T": tt["T"], "I": tt["I"],
                     "H": tt["H"], "max_abs_err": train_errs[n],
@@ -1329,7 +1639,9 @@ def main():
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",
          "replaces": replaces[n],
-         "launches": launches[n] + train_launches.get(n, 0),
+         "launches": (launches[n] + train_launches.get(n, 0)
+                      + int8_launches.get(n, 0)
+                      + (dp_launches if n == "lstm_cell" else 0)),
          "max_abs_err": errs[n], "ms": times[n]["ms"],
          "plain_ms": times[n]["plain_ms"], "bound_ms": times[n]["bound_ms"],
          "bound_by": times[n]["bound_by"],

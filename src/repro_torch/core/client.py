@@ -15,8 +15,11 @@ params, so each slice gets its own client's gradient.
 
 FedProx (Li et al. 2020) is supported via ``prox_mu``: the local objective
 gains ``mu/2 ||w - w_global||^2`` anchored at the round's incoming global
-params, realized as an extra ``mu * (w - w_global)`` gradient term.  With
-``mu = 0`` the term is skipped, so FedAvg semantics are unchanged.
+params, realized as an extra ``mu * (w - w_global)`` gradient term, added
+whenever an anchor is given, as the JAX package adds it.  With ``mu = 0``
+the term is exactly zero for finite weights, so FedAvg numerics are
+unchanged; a non-finite ``w - w_global`` turns the gradient into NaN there,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ def sgd_step(params, batch, lr, cfg: ForecasterConfig, loss: Callable,
         grads = torch.autograd.grad(per_client.sum(), leaves)
     with torch.no_grad():
         g = _rebuild(params, grads)
-        if anchor is not None and prox_mu:
+        if anchor is not None:
             g = tree_map(lambda gw, w, a: gw + prox_mu * (w - a),
                          g, params, anchor)
         new = tree_map(lambda w, gw: w - lr * gw, params, g)

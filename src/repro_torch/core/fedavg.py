@@ -8,24 +8,32 @@ one device: the counterpart of the sync, single-process half of
 selected client runs ``ClientUpdate`` — E local epochs of minibatch SGD,
 optionally FedProx-regularized (``core/client.py``) — all M of them at once,
 each step's forward one launch of the CUDA layer kernel per layer with the
-clients on its grid; *transform* is the identity stack; *aggregate* is the
-sample-count-weighted (or uniform) average of the local models; the server
-then applies a *server optimizer* to the pseudo-gradient
-``w_global - w_agg`` (``core/server_opt.py``).  Rounds are synchronous: the
-simulated clock (``core/latency.py``) advances by the slowest selected
-client, and ``FLResult.sim_times`` reports it.
+clients on its grid; *transform* passes each client's delta
+``w_i - w_global`` through the privacy stack — L2 clip, Gaussian DP noise,
+stochastic int quantize (``core/transforms.py``) and pairwise masking
+(``core/secure_agg.py``) — with keys from the seed, the cluster (``stream``),
+the round and the slot (``core/prng.py``, the JAX package's keys bit for
+bit); *aggregate* is the sample-count-weighted (or uniform) average of the
+local models under the identity stack, or ``w_global`` plus the average of
+the transformed deltas (unweighted sums of pre-weighted uploads, decoded
+from the ring when the stack quantizes onto it); the server then applies a
+*server optimizer* to the pseudo-gradient ``w_global - w_agg``
+(``core/server_opt.py``).  Rounds are synchronous: the simulated clock
+(``core/latency.py``) advances by the slowest selected client, and
+``FLResult.sim_times`` reports it.  The (eps, delta) accountant
+(``core/privacy.py``) prices every round, per client or, for ring-masked
+uniform aggregation, centrally on the masked sum.
 
 Not ported yet, and refused with ``NotImplementedError`` naming its ROADMAP
-item: non-identity transforms and DP noise (A7), secure aggregation (A8),
-a mesh or hierarchical aggregation (A9), semi-synchronous pacing, client
-churn and checkpoint/resume (A10).
+item: a mesh or hierarchical aggregation (A9), semi-synchronous pacing,
+client churn and checkpoint/resume (A10).
 
 Params live on the device as trees of tensors; ``FLResult.params`` comes
 back as host numpy arrays, the JAX package's tree layout, which
 ``checkpoint.save`` and ``serving.ModelRegistry.publish`` take as they are.
 Initial params are drawn from a ``torch.Generator`` seeded from
-``(seed, cluster id)`` (``jax.random`` cannot be replayed in torch), or
-given through ``run_federated_training(init_params=...)``.
+``(seed, cluster id)``, or given through
+``run_federated_training(init_params=...)``.
 """
 from __future__ import annotations
 
@@ -36,12 +44,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import (FLConfig, ForecasterConfig,
-                                      TransformConfig)
+                                      SecureAggConfig, TransformConfig)
 from repro_torch.core import clustering, losses as losses_mod
 from repro_torch.core import latency as latency_mod
 from repro_torch.core import privacy as privacy_mod
+from repro_torch.core import prng
 from repro_torch.core import sampling as sampling_mod
+from repro_torch.core import secure_agg as secure_agg_mod
 from repro_torch.core import server_opt as server_opt_mod
+from repro_torch.core import transforms as transforms_mod
 from repro_torch.core.client import local_update
 from repro_torch.data import partition, windows
 from repro_torch.models import forecaster
@@ -75,38 +86,89 @@ def weighted_aggregate(stacked_params, weights):
 
 
 # ------------------------------------------------------------ one round
-def engine_round(params, x, y, batch_idx, weights, lr, prox_mu,
-                 cfg: ForecasterConfig, loss: Callable,
-                 cell_impl: str = "kernel"):
-    """Generalized round: weighted aggregation + optional FedProx clients.
+def apply_stack(stack, deltas, keys, *, slots=None, w_full=None,
+                round_key=None):
+    """Transform a client-stacked delta tree through ``stack``, every client
+    at once (``keys``: (M, 2) per-client keys).
 
-    x: (M, n_win, L, 1); y: (M, n_win, H); batch_idx: (M, steps, B);
-    weights: (M,) aggregation weights (sample counts; pass ones for
-    uniform); prox_mu: FedProx proximal strength (0 = plain local SGD).
-    Returns ``(w_agg, weighted mean client loss)`` — the server step is
-    applied by the caller (``RoundEngine.step``).
+    Cohort-aware stacks (the ring quantizer, secure aggregation) also take
+    each client's :class:`~repro_torch.core.secure_agg.CohortContext`: its
+    dispatch slot (default: its row), the cohort's weight vector and the
+    shared round key.
     """
-    locals_, client_loss = local_update(params, x, y, batch_idx, lr, cfg,
-                                        loss, cell_impl, prox_mu)
-    with torch.no_grad():
-        w_agg = weighted_aggregate(locals_, weights)
-        loss_mean = (weights * client_loss).sum() / weights.sum()
+    if not stack.needs_cohort:
+        return stack(deltas, keys)
+    if round_key is None:
+        raise ValueError("cohort-aware transform stack needs the shared "
+                         "round_key (engine.base_round_key)")
+    if w_full is None:
+        raise ValueError("cohort-aware transform stack needs the cohort "
+                         "weight vector w_full")
+    if slots is None:
+        slots = torch.arange(w_full.shape[0], device=w_full.device)
+    return stack(deltas, keys,
+                 secure_agg_mod.CohortContext(slots, w_full, round_key))
+
+
+def transform_and_aggregate(params, locals_, client_loss, weights, keys,
+                            stack, round_key=None):
+    """The transform -> aggregate stages of one round, from the local
+    models (client-stacked) and each client's mean local loss (M,).
+
+    With the identity stack the raw local models are averaged through
+    :func:`_weighted_sums`.  Otherwise each client's delta ``w_i - w_global``
+    goes through ``stack`` and the aggregate is ``w_global`` plus the
+    average of the transformed deltas.  Pre-weighted stacks (ring quantizer
+    and/or masker) already carry each client's weight share in its upload,
+    so their uploads are summed UNWEIGHTED; on the ring the sum is wrapped
+    into the centered ring and decoded through the public grid step:
+    ``params + scale * wrap(sum of uploads)``.  Returns ``(w_agg, weighted
+    mean client loss)``.
+    """
+    if stack.is_identity:
+        sums, wsum = _weighted_sums(locals_, weights)
+        w_agg = tree_map(lambda s: s / wsum, sums)
+    else:
+        deltas = tree_map(lambda l, g: l - g, locals_, params)
+        deltas = apply_stack(stack, deltas, keys, w_full=weights,
+                             round_key=round_key)
+        if stack.pre_weighted:
+            sums = tree_map(lambda d: d.sum(0), deltas)
+            wsum = weights.sum()
+            ring = stack.ring_spec
+            if ring is not None:
+                bits, sensitivity, headroom = ring
+                scale = transforms_mod.ring_scale(bits, sensitivity,
+                                                  weights.shape[0], headroom)
+                w_agg = tree_map(
+                    lambda g, s: g + scale * transforms_mod.ring_wrap(s, bits),
+                    params, sums)
+            else:
+                w_agg = tree_map(lambda g, s: g + s / wsum, params, sums)
+        else:
+            sums, wsum = _weighted_sums(deltas, weights)
+            w_agg = tree_map(lambda g, s: g + s / wsum, params, sums)
+    loss_mean = (weights * client_loss).sum() / wsum
     return w_agg, loss_mean
 
 
-def pipeline_round(params, x, y, batch_idx, weights, lr, prox_mu,
+def pipeline_round(params, x, y, batch_idx, weights, keys, lr, prox_mu,
                    cfg: ForecasterConfig, loss: Callable,
                    tcfg: TransformConfig = TransformConfig(),
-                   cell_impl: str = "kernel"):
-    """Full pipeline round with the identity transform stack: the raw local
-    models aggregated through :func:`_weighted_sums`, as the JAX package's
-    identity path does.  Returns ``(w_agg, weighted mean client loss)``."""
-    if not tcfg.is_identity:
-        raise NotImplementedError(
-            "delta transforms (clip, DP noise, quantize) are not ported yet: "
-            "ROADMAP A7")
-    return engine_round(params, x, y, batch_idx, weights, lr, prox_mu, cfg,
-                        loss, cell_impl)
+                   cell_impl: str = "kernel",
+                   scfg: Optional[SecureAggConfig] = None, round_key=None):
+    """Full pipeline round: every client's local update, then
+    :func:`transform_and_aggregate` under the stack of ``tcfg`` (+
+    ``scfg``).  ``keys``: (M, 2) per-client transform keys (unused by the
+    identity stack); ``round_key``: the cohort's shared key (cohort-aware
+    stacks).  Returns ``(w_agg, weighted mean client loss)``; the server
+    stage is applied by the caller (``RoundEngine.step``)."""
+    locals_, client_loss = local_update(params, x, y, batch_idx, lr, cfg,
+                                        loss, cell_impl, prox_mu)
+    with torch.no_grad():
+        return transform_and_aggregate(
+            params, locals_, client_loss, weights, keys,
+            transforms_mod.make_stack(tcfg, scfg), round_key)
 
 
 # ------------------------------------------------------------- round engine
@@ -133,13 +195,6 @@ class RoundEngine:
             raise NotImplementedError(
                 "mesh execution and hierarchical aggregation are not ported "
                 "yet: ROADMAP A9")
-        if not flcfg.transform.is_identity:
-            raise NotImplementedError(
-                "delta transforms (clip, DP noise, quantize) are not ported "
-                "yet: ROADMAP A7")
-        if flcfg.secure.enabled:
-            raise NotImplementedError(
-                "secure aggregation is not ported yet: ROADMAP A8")
         if flcfg.async_config.mode != "sync" or flcfg.churn.absent_prob > 0:
             raise NotImplementedError(
                 "semi-synchronous pacing and client churn are not ported "
@@ -159,6 +214,9 @@ class RoundEngine:
         self.prox_mu = ccfg.prox_mu if flcfg.server_opt == "fedprox" else 0.0
         self.weighted = server_opt_mod.uses_weighted_aggregation(flcfg)
         self.transform = flcfg.transform
+        # secure aggregation (pairwise masking) + privacy accounting
+        self.secure = flcfg.secure if flcfg.secure.enabled else None
+        self.stack = transforms_mod.make_stack(self.transform, self.secure)
         self.accountant: Optional[privacy_mod.PrivacyAccountant] = None
         # the latency model is host-side only: under sync pacing it tracks
         # a simulated wall clock and never touches the round math
@@ -198,24 +256,71 @@ class RoundEngine:
         """Pick this round's m participants (``FLConfig.sampling``)."""
         return self.sampler(rng, np.asarray(members), m, round_idx, weights)
 
+    def base_round_key(self, round_idx: int, stream: int = 0):
+        """The dispatch cohort's SHARED round key ``fold_in(fold_in(
+        PRNGKey(seed), stream), round)`` (a Python key): the pairwise masks
+        are a pure function of it and the slot pair."""
+        rk = prng.fold_in(prng.PRNGKey(self.flcfg.seed), stream)
+        return prng.fold_in(rk, round_idx)
+
+    def rekey_key(self, round_idx: int, stream: int = 0,
+                  generation: int = 0):
+        """The shared cohort key at dropout-recovery generation ``g``:
+        generation 0 is ``base_round_key``; after a timeout the survivors
+        re-mask under ``fold_in(fold_in(base, _REKEY_DOMAIN), g)``."""
+        rk = self.base_round_key(round_idx, stream)
+        if generation == 0:
+            return rk
+        return prng.fold_in(prng.fold_in(rk, secure_agg_mod._REKEY_DOMAIN),
+                            generation)
+
+    def round_keys(self, round_idx: int, m: int, stream: int = 0):
+        """Per-client transform keys of one round, (m, 2) on the engine's
+        device: ``fold_in(base_round_key, slot)``.  ``stream`` (the driver
+        passes the cluster id) keeps two clusters' round-t slot-i clients
+        from drawing the same DP noise."""
+        return prng.fold_in(self.base_round_key(round_idx, stream),
+                            torch.arange(m, device=self.device))
+
     def attach_accountant(self, n_members: int, dispatch_m: int) -> None:
         """(Re)bind the (eps, delta) accountant for one training run:
-        sampling rate ``q = dispatch_m / n_members``.  Under the identity
-        stack it is disabled and reports ``epsilon = inf``."""
+        sampling rate ``q = dispatch_m / n_members``.
+
+        With secure aggregation the central (``central:secure-agg``)
+        accountant prices the masked sum when the protocol reduces the
+        server's view to the uniform cohort sum: RING masking and uniform
+        aggregation (``privacy.central_gate_reason``).  Otherwise the
+        per-client accountant stands, with the reason as
+        ``central_fallback_reason``.  Without clip and noise the accountant
+        is disabled and reports ``epsilon = inf``.
+        """
         q = min(1.0, dispatch_m / max(n_members, 1))
+        if self.secure is not None:
+            gate = privacy_mod.central_gate_reason(
+                ring=self.stack.ring_spec is not None, weighted=self.weighted)
+            if gate is None:
+                self.accountant = privacy_mod.secure_agg_accountant(
+                    self.transform, self.flcfg.privacy, q,
+                    secure_enabled=True, cohort=dispatch_m)
+                return
+            self.accountant = privacy_mod.make_accountant(
+                self.transform, self.flcfg.privacy, q)
+            self.accountant.central_fallback_reason = gate
+            return
         self.accountant = privacy_mod.make_accountant(
             self.transform, self.flcfg.privacy, q)
 
     def step(self, params, state, x, y, batch_idx, weights,
-             round_idx: int = 0):
+             round_idx: int = 0, stream: int = 0):
         """One full round on already-selected client data.
 
         x: (M, n_win, L, 1); y: (M, n_win, H); batch_idx: (M, steps, B),
         numpy arrays or tensors; weights: (M,) per-client sample counts —
         zero marks padding duplicates, which are excluded from aggregation
-        AND loss on both the uniform and weighted paths.  The slowest
-        client's simulated latency advances the clock.  Returns ``(new
-        params, new server state, round loss)``.
+        AND loss on both the uniform and weighted paths, and upload zero
+        under masking.  ``round_idx`` / ``stream`` key the transforms.  The
+        slowest client's simulated latency advances the clock.  Returns
+        ``(new params, new server state, round loss)``.
         """
         if self.accountant is not None:
             self.accountant.observe_cohort(
@@ -227,9 +332,11 @@ class RoundEngine:
                                    self.flcfg.client_opt.local_epochs,
                                    slots=real)
         self._clock += float(times.max(initial=0.0))
-        return self._sync_step(params, state, x, y, batch_idx, weights)
+        return self._sync_step(params, state, x, y, batch_idx, weights,
+                               round_idx, stream)
 
-    def _sync_step(self, params, state, x, y, batch_idx, weights):
+    def _sync_step(self, params, state, x, y, batch_idx, weights,
+                   round_idx: int = 0, stream: int = 0):
         """The synchronous round (select-free part of paper Alg. 1)."""
         dev = self.device
         w = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
@@ -237,10 +344,14 @@ class RoundEngine:
             w = (w > 0).float()
         x, y = (torch.as_tensor(a, device=dev) for a in (x, y))
         batch_idx = torch.as_tensor(batch_idx, device=dev)
-        w_agg, loss = pipeline_round(params, x, y, batch_idx, w,
+        keys = rk = None
+        if not self.stack.is_identity:
+            keys = self.round_keys(round_idx, x.shape[0], stream)
+            rk = self.base_round_key(round_idx, stream)
+        w_agg, loss = pipeline_round(params, x, y, batch_idx, w, keys,
                                      self.flcfg.lr, self.prox_mu, self.fcfg,
                                      self.loss, self.transform,
-                                     self.cell_impl)
+                                     self.cell_impl, self.secure, rk)
         params, state = server_opt_mod.server_update(params, w_agg, state,
                                                      self.flcfg.server)
         return params, state, loss
@@ -372,13 +483,16 @@ def run_federated_training(all_series, fcfg: ForecasterConfig,
                 rng, counts[sel], steps, ccfg.batch_size)
             x, y, w = provider.round_batch(sel)
             params, sstate, l = engine.step(params, sstate, x, y, bidx, w,
-                                            round_idx=t)
+                                            round_idx=t,
+                                            stream=cid if cid >= 0 else 0)
             hist.append(float(l))
             sim_hist.append(engine.sim_time)
             eps_hist.append(engine.accountant.epsilon())
             if log_every and (t + 1) % log_every == 0:
+                eps = eps_hist[-1]
+                eps_s = f" eps {eps:.2f}" if np.isfinite(eps) else ""
                 print(f"[cluster {cid}] round {t+1}/{flcfg.rounds} "
-                      f"loss {hist[-1]:.5f} sim_t {sim_hist[-1]:.1f}s")
+                      f"loss {hist[-1]:.5f} sim_t {sim_hist[-1]:.1f}s{eps_s}")
         results[cid] = FLResult(forecaster.params_to_numpy(params),
                                 np.array(hist), cents, assigns,
                                 held_ids if len(held_ids) else None,

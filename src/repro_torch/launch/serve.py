@@ -12,7 +12,9 @@ routed by the training's k-means centroids.  With ``--checkpoint`` (an
 ``.npz`` written by either package: a bare param tree or an FL training
 snapshot) it publishes those weights, and ``--clusters k`` takes the
 router's centroids from the requesting consumers' daily summaries.
-``--int8`` raises: int8 serving weights wait for ROADMAP A7.
+``--int8`` serves int8 weights (a 4x smaller model on the card), rounded
+under the JAX package's keys: ``fold_in(fold_in(PRNGKey(seed), rounds),
+slot + 1)``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --state CA --requests 256
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --clusters 2 \
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FLConfig, ForecasterConfig
-from repro_torch.core import clustering, fedavg
+from repro_torch.core import clustering, fedavg, prng
 from repro_torch.data import synthetic, windows
 from repro_torch.models import forecaster
 # re-exported: chip_smoke.py's serving phase seeds its weights with it, and
@@ -75,8 +77,7 @@ def main(argv=None):
                     help="k-means clusters (0 = single global model); "
                     "unseen consumers are routed by nearest centroid")
     ap.add_argument("--int8", action="store_true",
-                    help="serve int8-quantized weights (not ported yet: "
-                    "raises, ROADMAP A7)")
+                    help="serve int8-quantized weights (4x smaller)")
     ap.add_argument("--max-batch", type=int, default=256)
     ap.add_argument("--min-bucket", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
@@ -90,10 +91,10 @@ def main(argv=None):
 
     fcfg = ForecasterConfig()
     registry = ModelRegistry(device=args.device)
-    if args.int8:
-        raise NotImplementedError(
-            "int8 serving weights wait for the counter-based PRNG of ROADMAP "
-            "A7; serve fp32")
+    weights = "int8" if args.int8 else "fp32"
+    # int8 rounding keys, as the JAX package derives them: one root per
+    # (seed, rounds), folded with slot + 1 per published model
+    qroot = prng.fold_in(prng.PRNGKey(args.seed), args.rounds)
     held = synthetic.generate_buildings(
         args.state, list(range(50_000, 50_000 + args.requests)),
         days=args.days)
@@ -106,7 +107,9 @@ def main(argv=None):
             router = ClusterRouter(cents)
         else:
             router = ClusterRouter(None)
-        if not registry.poll_checkpoint(args.checkpoint, fcfg):
+        if not registry.poll_checkpoint(args.checkpoint, fcfg,
+                                        weights=weights,
+                                        key=qroot if args.int8 else None):
             raise ValueError(f"no forecaster weights in {args.checkpoint}")
     else:
         flcfg = FLConfig(n_clients=args.train_clients,
@@ -122,13 +125,15 @@ def main(argv=None):
                                                 device=registry.device)
         # ---- publish the trained models, one slot per cluster
         for cid, res in results.items():
-            registry.publish(res.params, fcfg, slot=cid,
-                             generation=len(res.loss_history))
+            registry.publish(
+                res.params, fcfg, slot=cid, generation=len(res.loss_history),
+                weights=weights,
+                key=prng.fold_in(qroot, cid + 1) if args.int8 else None)
         router = ClusterRouter.from_result(next(iter(results.values())))
     engine = ServingEngine(registry, router, max_batch=args.max_batch,
                            min_bucket=args.min_bucket, device=args.device)
     n_prog = engine.warmup()
-    print(f"[serve] registry: slots {registry.slots()} (fp32) on "
+    print(f"[serve] registry: slots {registry.slots()} ({weights}) on "
           f"{registry.device}; warmed {n_prog} bucket shapes")
 
     # ---- replay raw watt-hour requests from unseen consumers

@@ -130,3 +130,31 @@ def tree_leaves(tree):
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def sorted_leaves(tree):
+    """The leaves of a tree of dicts and lists in ``jax.tree.flatten``'s
+    order (dict keys sorted), the order the JAX package hands per-leaf
+    PRNG keys out in."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in sorted_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in sorted_leaves(v)]
+    return [tree]
+
+
+def unflatten_sorted(like, leaves):
+    """Inverse of :func:`sorted_leaves`: ``leaves`` placed into the
+    structure of ``like``."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return next(it)
+
+    return build(like)
+

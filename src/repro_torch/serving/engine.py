@@ -20,7 +20,9 @@ the engine owns everything between that and the forward on the card:
   forward, so a swap changes no code path.
 
 The forward steps through the hand-written CUDA cells; on a CPU engine the
-same call takes their plain versions.
+same call takes their plain versions.  An int8 handle's weights are
+dequantized inside the forward, a temporary of the flush: the registry
+keeps only the int8 grid and its scales.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ import torch
 
 from repro_torch.models import forecaster
 from repro_torch.serving.registry import (GLOBAL_SLOT, ModelHandle,
-                                          ModelRegistry, resolve_device)
+                                          ModelRegistry, dequantize_params,
+                                          resolve_device)
 
 __all__ = ["ForecastRequest", "FlushStats", "EngineStats", "ServingEngine",
            "bucket_for", "bucket_ladder"]
@@ -86,7 +89,7 @@ class FlushStats:
     bucket: int                           # padded shape actually executed
     wall_s: float                         # host clock, result on the host
     generation: int                       # handle generation that served it
-    weights: str                          # "fp32"
+    weights: str                          # "fp32" or "int8"
     requests: Tuple[ForecastRequest, ...] = ()
 
 
@@ -246,7 +249,9 @@ class ServingEngine:
         L = handle.cfg.lookback
         with torch.inference_mode():
             t = torch.from_numpy(rows).to(self.device)
-            pred = forecast_kwh(handle.params, t[:, :L], t[:, L:L + 1],
+            params = (dequantize_params(handle.params)
+                      if handle.weights == "int8" else handle.params)
+            pred = forecast_kwh(params, t[:, :L], t[:, L:L + 1],
                                 t[:, L + 1:], handle.cfg)
             return pred.cpu().numpy()      # waits for the device
 
@@ -274,16 +279,17 @@ class ServingEngine:
 
     # -------------------------------------------------------------- warmup
     def warmup(self, slots=None) -> int:
-        """Run every (bucket, cfg) shape the registry can serve once, so the
-        kernels are built and the first launches are paid before traffic.
-        Returns the number of (bucket, cfg) shapes run."""
+        """Run every (bucket, cfg, weights) shape the registry can serve
+        once, so the kernels are built and the first launches are paid
+        before traffic.  Returns the number of shapes run."""
         n = 0
         seen = set()
         for s in (self.registry.slots() if slots is None else slots):
             handle = self.registry.handle(s)
-            if handle.cfg in seen:
+            sig = (handle.cfg, handle.weights)
+            if sig in seen:
                 continue
-            seen.add(handle.cfg)
+            seen.add(sig)
             L = handle.cfg.lookback
             for b in bucket_ladder(self.min_bucket, self.max_batch):
                 rows = np.zeros((b, L + 2), np.float32)

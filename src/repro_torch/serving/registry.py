@@ -14,9 +14,17 @@ Generations are strictly monotone per slot: a stale publish (generation <=
 the live one) raises, or is skipped with ``if_newer=True``, the polling
 path where several pollers may race on the same checkpoint glob.
 
-Weights are served in fp32.  int8 serving weights need the counter-based
-PRNG that ROADMAP A7 brings (their stochastic rounding draws random bits);
-until then ``weights="int8"`` raises ``NotImplementedError``.
+**int8 serving weights** (``weights="int8"``) store each leaf as an int8
+grid plus one fp32 scale on the registry's device, a 4x cut in parameter
+memory, on exactly the stochastic-rounding grid of the training-side
+quantizer (:class:`repro_torch.core.transforms.StochasticQuantize`):
+per-leaf max-abs scale, ``floor(x/s + u)`` rounding, per-leaf keys split as
+the transform stack splits them.  ``dequantize_params(quantize_params(p,
+key))`` is bit-identical to ``StochasticQuantize(8)`` of ``p`` under
+``key``, and the draws are the JAX package's (``core/prng.py``), so the
+int8 weights are the JAX package's bit for bit for the same params and
+key.  The serving engine dequantizes inside its forward; no fp32 copy of an
+int8 model is kept.
 """
 from __future__ import annotations
 
@@ -28,13 +36,18 @@ import torch
 
 from repro_torch import checkpoint
 from repro_torch.configs.base import ForecasterConfig
+from repro_torch.core import prng
 from repro_torch.models import forecaster
+from repro_torch.models.layers import sorted_leaves, unflatten_sorted
 
-__all__ = ["GLOBAL_SLOT", "ModelHandle", "ModelRegistry", "resolve_device"]
+__all__ = ["GLOBAL_SLOT", "ModelHandle", "ModelRegistry", "resolve_device",
+           "quantize_params", "dequantize_params"]
 
 # FL training reports the unclustered run as cluster id -1; the serving
 # tier reuses it as the fallback slot, so checkpoint polling needs no remap
 GLOBAL_SLOT = -1
+
+_WEIGHT_KINDS = ("fp32", "int8")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -48,10 +61,49 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def _is_qleaf(node: Any) -> bool:
+    return isinstance(node, dict) and set(node.keys()) == {"q", "scale"}
+
+
+def quantize_params(params, key: prng.Key, bits: int = 8):
+    """fp32 param tree (tensors) -> tree of ``{"q": int8, "scale": fp32}``
+    leaves on the params' device.
+
+    Per-leaf max-abs scale to the signed ``2^(bits-1)-1`` grid, unbiased
+    ``floor(x/s + u)`` rounding, per-leaf keys ``split(key, n_leaves)`` in
+    ``jax.tree.flatten``'s leaf order: the transform stack's quantizer,
+    with the integer grid materialized.
+    """
+    levels = float(2 ** (bits - 1) - 1)
+    leaves = sorted_leaves(params)
+    keys = prng.split(key, len(leaves))
+    out = []
+    for i, x in enumerate(leaves):
+        x = x.float()
+        scale = x.abs().max() / x.new_full((), levels)   # a true division
+        safe = torch.clamp_min(scale, torch.finfo(torch.float32).tiny)
+        u = prng.uniform(keys[i], x.shape, device=x.device)
+        q = torch.clamp(torch.floor(x / safe + u), -levels, levels)
+        out.append({"q": q.to(torch.int8), "scale": safe})
+    return unflatten_sorted(params, out)
+
+
+def dequantize_params(qparams):
+    """int8 q-leaf tree -> fp32 param tree (``q * scale`` per leaf), on the
+    q-leaves' device: the serving forward's temporary."""
+    if _is_qleaf(qparams):
+        return qparams["q"].to(torch.float32) * qparams["scale"]
+    if isinstance(qparams, dict):
+        return {k: dequantize_params(v) for k, v in qparams.items()}
+    return [dequantize_params(v) for v in qparams]
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelHandle:
     """One immutable serving model: parameters + config + generation.
-    ``params`` is an fp32 tree on the registry's device."""
+    ``params`` is an fp32 tree (``weights="fp32"``) or a q-leaf tree
+    (``weights="int8"``, see :func:`quantize_params`) on the registry's
+    device."""
     slot: Any
     cfg: ForecasterConfig
     params: Any
@@ -83,22 +135,27 @@ class ModelRegistry:
     # ------------------------------------------------------------ publish
     def publish(self, params, cfg: ForecasterConfig, *, slot: Any = GLOBAL_SLOT,
                 generation: int = 0, weights: str = "fp32",
+                key: Optional[prng.Key] = None,
                 if_newer: bool = False) -> Optional[ModelHandle]:
         """Build a fresh handle and atomically swap it into ``slot``.
 
         ``params`` is a forecaster tree of tensors or numpy arrays; the
-        handle holds an fp32 copy on the registry's device.  A stale
-        ``generation`` raises ``ValueError``, or returns ``None`` with
-        ``if_newer=True``.
+        handle holds an fp32 copy on the registry's device, or with
+        ``weights="int8"`` its int8 grid and scales, quantized there
+        (``key`` required: the stochastic rounding; fold it from a config
+        seed).  A stale ``generation`` raises ``ValueError``, or returns
+        ``None`` with ``if_newer=True``.
         """
+        if weights not in _WEIGHT_KINDS:
+            raise ValueError(f"weights={weights!r}; pick from {_WEIGHT_KINDS}")
+        stored = _to_fp32(params, self.device)
         if weights == "int8":
-            raise NotImplementedError(
-                "int8 serving weights wait for the counter-based PRNG of "
-                "ROADMAP A7; publish weights='fp32'")
-        if weights != "fp32":
-            raise ValueError(f"weights={weights!r}; this port serves 'fp32'")
-        handle = ModelHandle(slot=slot, cfg=cfg,
-                             params=_to_fp32(params, self.device),
+            if key is None:
+                raise ValueError("int8 publish needs a PRNG key for "
+                                 "stochastic rounding (derive from the "
+                                 "config seed)")
+            stored = quantize_params(stored, key)
+        handle = ModelHandle(slot=slot, cfg=cfg, params=stored,
                              weights=weights, generation=int(generation))
         with self._lock:
             cur = self._slots.get(slot)
@@ -137,7 +194,8 @@ class ModelRegistry:
 
     # ------------------------------------------------- checkpoint polling
     def poll_checkpoint(self, path_glob, cfg: ForecasterConfig, *,
-                        weights: str = "fp32") -> List[ModelHandle]:
+                        weights: str = "fp32",
+                        key: Optional[prng.Key] = None) -> List[ModelHandle]:
         """Publish new models from the freshest checkpoint under a glob.
 
         :func:`repro_torch.checkpoint.latest` finds the highest-generation
@@ -146,8 +204,9 @@ class ModelRegistry:
         checkpoints (written by either package) publish every finished
         cluster (``done/<cid>/params``) plus the in-progress one
         (``cur/params`` under ``metadata["cluster"]``); a bare param-tree
-        checkpoint publishes ``GLOBAL_SLOT``.  Returns the handles actually
-        swapped in (stale slots are skipped).
+        checkpoint publishes ``GLOBAL_SLOT``.  An int8 publish of slot
+        ``s`` rounds under ``fold_in(key, s + 1)``.  Returns the handles
+        actually swapped in (stale slots are skipped).
         """
         found = checkpoint.latest(path_glob)
         if found is None:
@@ -172,8 +231,10 @@ class ModelRegistry:
                                                    prefix=prefix)
             except KeyError:
                 continue                    # slot absent from this snapshot
+            # +1 keeps GLOBAL_SLOT=-1 and slot 0 on distinct key streams
+            k = None if key is None else prng.fold_in(key, slot + 1)
             h = self.publish(params, cfg, slot=slot, generation=gen,
-                             weights=weights, if_newer=True)
+                             weights=weights, key=k, if_newer=True)
             if h is not None:
                 updated.append(h)
         # the watermark is written back under the lock, which is not held

@@ -20,6 +20,7 @@ from repro_torch.kernels import lstm_cell, ops, ref  # noqa: E402
 from repro_torch.launch import lm_steps  # noqa: E402
 from repro_torch.models import forecaster  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.layers import tree_leaves  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # a layer past one step in bf16: the plain cell rounds its two products and
@@ -438,3 +439,81 @@ def test_local_update_on_card_both_routes(cuda, cell, n_layers):
                         [forecaster.params_to_numpy(other)["head"]]):
             for k in a:
                 np.testing.assert_allclose(a[k], b[k], rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------- privacy pipeline
+def test_prng_on_card_matches_the_cpu(cuda):
+    """The threefry PRNG on the card: keys, bits, uniform and randint
+    bit-equal to the CPU's, batched keys too; normal within 1e-5 of |x|
+    (torch's CUDA and CPU erfinv may differ in the last bits)."""
+    from repro_torch.core import prng
+
+    key = prng.fold_in(prng.PRNGKey(3), 42)
+    batch = prng.split(prng.as_tensor(key), 12).reshape(4, 3, 2)
+    assert torch.equal(prng.split(batch.to(cuda), 5).cpu(),
+                       prng.split(batch, 5))
+    assert torch.equal(prng.fold_in(batch.to(cuda), 7).cpu(),
+                       prng.fold_in(batch, 7))
+    for shape in ((), (7,), (3, 4, 5), (100_003,)):
+        assert torch.equal(prng.bits(key, shape, device=cuda).cpu(),
+                           prng.bits(key, shape))
+        assert torch.equal(prng.uniform(key, shape, device=cuda).cpu(),
+                           prng.uniform(key, shape))
+        for lo, hi in ((0, 256), (-5, 1_000_003)):
+            assert torch.equal(
+                prng.randint(key, shape, lo, hi, device=cuda).cpu(),
+                prng.randint(key, shape, lo, hi))
+        n, c = prng.normal(key, shape, device=cuda).cpu(), \
+            prng.normal(key, shape)
+        assert bool(((n - c).abs() <= 1e-5 * c.abs()).all())
+    assert torch.equal(prng.randint(batch.to(cuda), (5, 2), 0, 256).cpu(),
+                       prng.randint(batch, (5, 2), 0, 256))
+
+
+def test_ring_masked_round_equals_clear_on_card(cuda):
+    """A ring-masked round on the card equals the ring-clear round bit for
+    bit (kernel route, clip + noise + 8-bit quantize, one weight-0 pad),
+    and its uploads are ring noise."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import fedavg
+
+    cfg = ForecasterConfig(hidden_dim=16)
+    params = forecaster.init_forecaster(torch.Generator().manual_seed(5), cfg)
+    r = np.random.default_rng(4)
+    x = r.random((4, 120, 8, 1)).astype(np.float32)
+    y = r.random((4, 120, 4)).astype(np.float32)
+    bidx = r.integers(0, 120, (4, 3, 16))
+    w = np.asarray([17.0, 0.0, 29.0, 11.0], np.float32)
+    kw = dict(dp_clip=1.0, dp_noise=0.5, quantize_bits=8, lr=0.05, seed=3)
+    outs = []
+    for extra in (dict(quantize_ring=True), dict(secure_agg=True)):
+        e = fedavg.RoundEngine(cfg, FLConfig(**kw, **extra), device=cuda)
+        p, s = e.init(params=params)
+        p, s, l = e.step(p, s, x, y, bidx, w, round_idx=1, stream=2)
+        outs.append((p, l, e))
+    assert torch.equal(outs[0][1], outs[1][1])
+    for a, b in zip(tree_leaves(outs[0][0]),
+                    tree_leaves(outs[1][0])):
+        assert torch.equal(a, b)
+    e = outs[1][2]
+    d = {"w": torch.randn(4, 300, generator=torch.Generator().manual_seed(1)
+                          ).to(cuda) * 0.05}
+    masked = fedavg.apply_stack(e.stack, d, e.round_keys(1, 4, 2),
+                                w_full=(torch.from_numpy(w) > 0).float()
+                                .to(cuda), round_key=e.base_round_key(1, 2))
+    assert torch.equal(masked["w"], masked["w"].round())
+    assert float(masked["w"].abs().max()) > 8.0
+
+
+def test_int8_publish_on_card_matches_the_cpu(cuda):
+    from repro_torch.serving import ModelRegistry
+
+    params = forecaster.init_forecaster(torch.Generator().manual_seed(6),
+                                        ForecasterConfig())
+    key = (0, 123)
+    hs = [ModelRegistry(device=d).publish(params, ForecasterConfig(),
+                                          weights="int8", key=key)
+          for d in (cuda, "cpu")]
+    for a, b in zip(tree_leaves(hs[0].params),
+                    tree_leaves(hs[1].params)):
+        assert a.is_cuda and torch.equal(a.cpu(), b)

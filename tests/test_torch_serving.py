@@ -2,9 +2,11 @@
 
 Buckets, the copied numpy modules, per-request kWh from the engine with
 routed clusters, checkpoint polling, generations and hot-swap atomicity,
-``serve_forecaster``, and the rule that entry points run on the card unless
-the caller asks for the CPU.  Weights are made by JAX and carried across as
-numpy arrays; kWh agree at rtol 1e-5 and atol 1e-5·(hi−lo) of the row.
+``serve_forecaster``, int8 serving weights, and the rule that entry points
+run on the card unless the caller asks for the CPU.  Weights are made by
+JAX and carried across as numpy arrays; kWh agree at rtol 1e-5 and atol
+1e-5·(hi−lo) of the row.  int8 weights (``q`` and ``scale``) are bit-equal
+to the JAX package's for the same params and key.
 """
 import numpy as np
 import pytest
@@ -24,6 +26,8 @@ from repro_torch import checkpoint as tck  # noqa: E402
 from repro_torch import serving as tsv  # noqa: E402
 from repro_torch.configs.base import ForecasterConfig  # noqa: E402
 from repro_torch.core import clustering as tclu  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
+from repro_torch.core import transforms as ttr  # noqa: E402
 from repro_torch.data import synthetic as tsyn, windows as twin  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import forecaster as tfc  # noqa: E402
@@ -175,8 +179,10 @@ def test_stale_publish_raises_or_skips():
     assert reg.publish(p, CFG, generation=4, if_newer=True).generation == 4
     assert reg.generation() == 4 and reg.generation(5) == -1
     assert reg.handle(5).slot == tsv.GLOBAL_SLOT          # global fallback
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="PRNG key"):
         reg.publish(p, CFG, generation=5, weights="int8")
+    with pytest.raises(ValueError, match="weights"):
+        reg.publish(p, CFG, generation=5, weights="fp16")
     with pytest.raises(KeyError):
         tsv.ModelRegistry(device=CPU).handle(0)
 
@@ -282,7 +288,7 @@ def test_serve_main_trains_then_serves_the_trained_models(monkeypatch,
     """Without a checkpoint, serve first trains (the port's
     ``run_federated_training``) and publishes each cluster's model at the
     generation of its rounds, routed by the training's centroids; --int8
-    raises, naming ROADMAP A7."""
+    publishes the same models as int8 grids and serves them."""
     published = []
     real = tsv.ModelRegistry.publish
 
@@ -310,9 +316,169 @@ def test_serve_main_trains_then_serves_the_trained_models(monkeypatch,
         device=CPU)
     for slot, _, params in published:
         jax.tree.map(np.testing.assert_array_equal, params, res[slot].params)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tserve.main(["--device", "cpu", "--requests", "2", "--days", "3",
-                     "--int8"])
+    published.clear()
+    tickets = tserve.main(["--device", "cpu", "--requests", "10", "--days",
+                           "4", "--clusters", "2", "--max-batch", "8",
+                           "--train-clients", "6", "--rounds", "2",
+                           "--int8"])
+    assert "(int8)" in capsys.readouterr().out
+    assert sorted(s for s, _, _ in published) == [0, 1]
+    assert all(np.isfinite(t.result).all() for t in tickets)
+
+
+# ------------------------------------------------------------------- int8
+def _tkey(k):
+    return tuple(np.asarray(k).tolist())
+
+
+@pytest.mark.parametrize("seed", [0, 4, 9])
+def test_int8_weights_are_the_jax_packages_bit_for_bit(seed):
+    """``quantize_params`` against the reference's (q and scale bit-equal);
+    ``dequantize_params(quantize_params(p, k))`` equals the port's own
+    ``StochasticQuantize(8)`` of ``p`` under ``k`` bit for bit, as the
+    reference pins it; the round trip is within one grid step."""
+    jp = _jparams(seed)
+    k = jax.random.fold_in(jax.random.PRNGKey(seed), 4)
+    want = jsv.quantize_params(jp, k)
+    tp = tfc.params_from_numpy(_np(jp))
+    got = tsv.registry.quantize_params(tp, _tkey(k))
+    def is_q(n):
+        return isinstance(n, dict) and set(n) == {"q", "scale"}
+
+    wq = jax.tree.leaves(want, is_leaf=is_q)
+    gq = jax.tree.leaves(got, is_leaf=is_q)
+    assert len(gq) == len(wq) == 5
+    for g, w in zip(gq, wq):
+        assert g["q"].dtype == torch.int8
+        np.testing.assert_array_equal(g["q"].numpy(), np.asarray(w["q"]))
+        np.testing.assert_array_equal(g["scale"].numpy(),
+                                      np.asarray(w["scale"]))
+    deq = tsv.registry.dequantize_params(got)
+    stacked = jax.tree.map(lambda t: t[None], tp)
+    sq = ttr.StochasticQuantize(8)(stacked, prng.as_tensor(_tkey(k))[None])
+    for a, b, x in zip(jax.tree.leaves(deq), jax.tree.leaves(sq),
+                       jax.tree.leaves(tp)):
+        assert torch.equal(a, b[0])
+        assert float((a - x).abs().max()) <= float(x.abs().max()) / 127 + 1e-7
+
+
+def test_int8_engine_matches_the_jax_int8_engine(fleet):
+    """The same int8 publish in both registries serves the same kWh (the
+    engine's tolerance); int8 shifts the forecasts from fp32 by < 2 %
+    MAPE, the reference's own bound; an int8 handle holds only int8 grids
+    and scales; poll_checkpoint folds the slot into the key as the
+    reference does."""
+    series, _ = fleet
+    jp = _jparams(60)
+    key = jax.random.fold_in(jax.random.PRNGKey(60), 3)
+
+    def run(pkg, weights):
+        reg = (jsv.ModelRegistry() if pkg is jsv
+               else tsv.ModelRegistry(device=CPU))
+        reg.publish(jp if pkg is jsv else _np(jp),
+                    JCFG if pkg is jsv else CFG, generation=1,
+                    weights=weights,
+                    key=(None if weights == "fp32"
+                         else key if pkg is jsv else _tkey(key)))
+        eng = (pkg.ServingEngine(reg, max_batch=8, min_bucket=8,
+                                 auto_flush=False) if pkg is jsv else
+               pkg.ServingEngine(reg, max_batch=8, min_bucket=8,
+                                 auto_flush=False, device=CPU))
+        reqs = [eng.submit(i, h[-CFG.lookback:], history=h)
+                for i, h in enumerate(series[:12])]
+        eng.flush()
+        return reg, reqs
+
+    treg, t8 = run(tsv, "int8")
+    _, j8 = run(jsv, "int8")
+    _, t32 = run(tsv, "fp32")
+    for a, b in zip(t8, j8):
+        np.testing.assert_allclose(a.result, b.result, rtol=1e-5,
+                                   atol=1e-5 * (b.hi - b.lo))
+    f32, i8 = (np.stack([r.result for r in t32]),
+               np.stack([r.result for r in t8]))
+    assert np.mean(np.abs(i8 - f32) / np.maximum(np.abs(f32), 1e-6)) < 0.02
+    h = treg.handle()
+    assert h.weights == "int8"
+    assert {str(leaf.dtype) for leaf in jax.tree.leaves(h.params)} == \
+        {"torch.int8", "torch.float32"}
+    assert all(leaf.dim() == 0 for leaf in jax.tree.leaves(h.params)
+               if leaf.dtype == torch.float32)            # scales only
+
+
+def test_poll_checkpoint_int8_matches_jax(tmp_path):
+    p0, p1 = _jparams(20), _jparams(21)
+    jck.save(tmp_path / "fl", {"done": {"0": {"params": p0}},
+                               "cur": {"params": p1}},
+             metadata={"done": [0], "cluster": 1, "generation": 5})
+    glob = str(tmp_path / "*.npz")
+    key = jax.random.PRNGKey(77)
+    jreg, treg = jsv.ModelRegistry(), tsv.ModelRegistry(device=CPU)
+    jreg.poll_checkpoint(glob, JCFG, weights="int8", key=key)
+    treg.poll_checkpoint(glob, CFG, weights="int8", key=_tkey(key))
+    for slot in (0, 1):
+        for a, b in zip(jax.tree.leaves(treg.handle(slot).params),
+                        jax.tree.leaves(jreg.handle(slot).params)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_serve_int8_matches_the_jax_serve_int8(monkeypatch, capsys):
+    """``launch/serve.py --int8`` in both packages, each publishing the
+    same JAX-made models as its training result: the int8 handles are
+    bit-equal (the keys fold_in(fold_in(PRNGKey(seed), rounds), cid + 1)),
+    and every forecast agrees at the engine's tolerance."""
+    from repro.core import fedavg as jfed
+    from repro_torch.core import fedavg as tfed
+    models = {0: _jparams(70), 1: _jparams(71)}
+    series = jsyn.generate_buildings("CA", list(range(6)), days=4)
+    z = jwin.daily_average_vector(series, days=4)
+    cents, assign, _ = jclu.kmeans(z, 2, seed=0)
+
+    def fake(pkg):
+        def run(series, fcfg, flcfg, **kw):
+            return {cid: pkg.FLResult(
+                        _np(p) if pkg is tfed else p, np.zeros(3),
+                        cluster_centroids=cents, cluster_assignments=assign)
+                    for cid, p in models.items()}
+        return run
+
+    monkeypatch.setattr(jfed, "run_federated_training", fake(jfed))
+    monkeypatch.setattr(tfed, "run_federated_training", fake(tfed))
+    handles = {jsv: {}, tsv: {}}
+    tickets = {jsv: [], tsv: []}
+    for pkg in (jsv, tsv):
+        real_pub, real_sub = pkg.ModelRegistry.publish, \
+            pkg.ServingEngine.submit
+
+        def pub(self, params, cfg, _p=pkg, _r=real_pub, **kw):
+            h = _r(self, params, cfg, **kw)
+            handles[_p][kw["slot"]] = h
+            return h
+
+        def sub(self, *a, _p=pkg, _r=real_sub, **kw):
+            t = _r(self, *a, **kw)
+            tickets[_p].append(t)
+            return t
+
+        monkeypatch.setattr(pkg.ModelRegistry, "publish", pub)
+        monkeypatch.setattr(pkg.ServingEngine, "submit", sub)
+    argv = ["--requests", "12", "--days", "4", "--clusters", "2",
+            "--max-batch", "8", "--train-clients", "6", "--rounds", "3",
+            "--seed", "5", "--int8"]
+    monkeypatch.setattr("sys.argv", ["serve"] + argv)
+    jserve.main()
+    tserve.main(["--device", "cpu"] + argv)
+    assert sorted(handles[tsv]) == sorted(handles[jsv]) == [0, 1]
+    for slot in (0, 1):
+        assert handles[tsv][slot].weights == "int8"
+        for a, b in zip(jax.tree.leaves(handles[tsv][slot].params),
+                        jax.tree.leaves(handles[jsv][slot].params)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert len(tickets[tsv]) == len(tickets[jsv]) == 12
+    for a, b in zip(tickets[tsv], tickets[jsv]):
+        assert a.slot == b.slot
+        np.testing.assert_allclose(a.result, b.result, rtol=1e-5,
+                                   atol=1e-5 * (b.hi - b.lo))
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

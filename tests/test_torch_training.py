@@ -260,6 +260,80 @@ def test_local_update_matches_jax_pallas_cells(cell):
     _close(jax.tree.map(lambda t: t[0], loc), _np(jp), rtol=1e-4, atol=1e-5)
 
 
+def test_fedprox_term_turns_a_non_finite_delta_into_nan_as_jax_does():
+    """prox_mu = 0 still adds ``0 * (w - anchor)``: a forget-gate bias of
+    +inf keeps the forward finite (the gate saturates, its gradient is 0),
+    but ``inf - inf`` in the proximal term is NaN, in the port as in
+    ``jax.vmap(local_update)``; NaN where the reference has NaN, the rest
+    at the local-update tolerances."""
+    jcfg, cfg = JForecasterConfig(hidden_dim=8), ForecasterConfig(hidden_dim=8)
+    params = jax.tree.map(np.array, _jax_init(jcfg, 3, 0))
+    params["layers"][0]["b"][jcfg.hidden_dim] = np.inf
+    x, y, bidx = _client_data(2, steps=4)
+    jloc, jl = jax.vmap(jlocal_update, in_axes=(None, 0, 0, 0, None, None,
+                                                None, None, None))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(x), jnp.asarray(y),
+        jnp.asarray(bidx), 0.05, jcfg, jloss.make_loss("mse"), "jnp", 0.0)
+    loc, lo = local_update(forecaster.params_from_numpy(params), _t(x),
+                           _t(y), _t(bidx), 0.05, cfg,
+                           losses.make_loss("mse"), "kernel", 0.0)
+    assert np.isnan(np.asarray(jl)).all()
+    np.testing.assert_allclose(lo.numpy(), np.asarray(jl), rtol=1e-5)
+    _close(loc, _np(jloc), rtol=1e-4, atol=1e-5)      # NaN where JAX has
+
+
+@pytest.mark.parametrize("lr,diverges", [(0.05, True), (0.02, False)])
+def test_gru2_building_6_from_the_ports_init_in_jax(tmp_path, lr, diverges):
+    """The open GRU-2 question: the port's seed-0 init of the 2-layer GRU,
+    carried through the ``.npz`` format into the JAX ``RoundEngine.step``
+    for building 6's first round of the phase-6 configuration (20 CA
+    buildings x 60 days, 68 local steps of 64, ew_mse beta 2).  At lr 0.05
+    the reference diverges too (its loss and params go non-finite), as the
+    port does; at 0.02 both train.  The divergence belongs to that init
+    and lr, not to the port, so the lr cut stands."""
+    from repro import checkpoint as jck
+    from repro_torch import checkpoint as tck
+    from repro_torch.data import partition
+    from repro_torch.models.layers import seeded_generator, tree_leaves
+
+    kw = dict(n_clients=20, clients_per_round=20, local_epochs=1,
+              batch_size=64, rounds=1, lr=lr, loss="ew_mse", beta=2.0,
+              n_clusters=0, seed=0, cluster_days=45)
+    jcfg = JForecasterConfig(cell="gru", n_layers=2)
+    cfg = ForecasterConfig(cell="gru", n_layers=2)
+    series = synthetic.generate_buildings("CA", list(range(20)), days=60)
+    prov = fedavg._as_provider(series, cfg)
+    steps = partition.local_steps(prov.n_win_max, 64, 1)
+    holdout_rng, rng = fedavg._seed_rngs(0)
+    train_ids, _ = partition.holdout_clients(holdout_rng, 20, 0.0)
+    te = fedavg.RoundEngine(cfg, FLConfig(**kw), device=CPU)
+    counts = prov.train_counts.astype(np.float32)
+    sel = te.select(rng, train_ids, 20, 0, counts[train_ids])
+    bidx = partition.ragged_minibatch_indices(rng, counts[sel], steps, 64)
+    x, y, w = prov.round_batch(sel)
+    i = slice(int(np.flatnonzero(sel == 6)[0]), None)
+    i = slice(i.start, i.start + 1)                   # building 6 alone
+    init = forecaster.init_forecaster(seeded_generator(0, 0), cfg)
+    tck.save(tmp_path / "gru2", init)
+    flat, _ = jck.load_arrays(tmp_path / "gru2.npz")
+    jp = jck.unflatten_like(jfc.init_forecaster(jax.random.PRNGKey(0),
+                                                jcfg), flat)
+    je = jfed.RoundEngine(jcfg, JFLConfig(**kw))
+    from repro.core import server_opt as jso
+    jp, _, jl = je.step(jp, jso.init_server_state(jp), jnp.asarray(x[i]),
+                        jnp.asarray(y[i]), jnp.asarray(bidx[i]), w[i],
+                        round_idx=0)
+    tp, ts = te.init(params=init)
+    tp, _, tl = te.step(tp, ts, x[i], y[i], bidx[i], w[i], round_idx=0)
+    jfinite = bool(np.isfinite(float(jl))) and all(
+        np.isfinite(np.asarray(a)).all() for a in jax.tree.leaves(jp))
+    tfinite = bool(np.isfinite(float(tl))) and all(
+        torch.isfinite(t).all() for t in tree_leaves(tp))
+    assert jfinite == tfinite == (not diverges)
+    if not diverges:
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-4)
+
+
 # ----------------------------------------------------- federated training
 def _fl_pair(n_clients, days, kw, hidden=8):
     jcfg, cfg = JForecasterConfig(hidden_dim=hidden), \
@@ -391,9 +465,7 @@ def test_train_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(dp_clip=1.0), "A7"), (dict(quantize_bits=8), "A7"),
-    (dict(quantize_ring=True, quantize_bits=8), "A7"),
-    (dict(secure_agg=True), "A8"), (dict(aggregation="hierarchical"), "A9"),
+    (dict(aggregation="hierarchical"), "A9"),
     (dict(mode="semi_sync"), "A10"), (dict(absent_prob=0.1), "A10"),
 ])
 def test_unported_stages_raise_naming_their_roadmap_item(kw, item):
