@@ -17,8 +17,14 @@ trains the forecaster federatedly (the paper's Algorithm 1: 100 clients x
 all clients, its backward the plain layer's VJP) on the kernel route
 against the plain route, trains the same setting again under the privacy
 pipeline (clip, DP noise, the 8-bit ring quantizer and secure aggregation:
-ring-masked == clear bit for bit, epsilon, the stage's device time), and
-ends with one JSON status line.
+ring-masked == clear bit for bit, epsilon, the stage's device time), runs
+one round of that setting sharded over torch.distributed ranks (flat and
+hierarchical: one NCCL rank, then four gloo ranks sharing the card, held
+to the local round), runs semi-synchronous buffered rounds with stragglers
+(500 buildings, m' = 48, flush at 32) and with dropouts, the ring and
+secure aggregation (re-keyed cohorts: masked == clear bit for bit), kills
+and resumes that run from its checkpoint bit for bit, and ends with one
+JSON status line.
 
     python3 chip_smoke.py [--seed N]
 
@@ -1230,12 +1236,11 @@ def train_slice(seed):
 DP = dict(dp_clip=1.0, dp_noise=0.5, quantize_bits=8, secure_agg=True)
 
 
-def _round0(engine, provider, flcfg, seed, steps):
-    """Round 0's selection, minibatch indices and data on the card, drawn
-    as run_federated_training draws them."""
+def _round0(provider, flcfg, seed, steps):
+    """Round 0's (x, y, minibatch indices, sample counts) on the host,
+    drawn as run_federated_training draws them."""
     import numpy as np
-    import torch
-    from repro_torch.core import fedavg
+    from repro_torch.core import fedavg, sampling
     from repro_torch.data import partition
 
     holdout_rng, rng = fedavg._seed_rngs(seed)
@@ -1243,15 +1248,12 @@ def _round0(engine, provider, flcfg, seed, steps):
                                              flcfg.holdout_frac)
     counts = provider.train_counts.astype(np.float32)
     m = min(flcfg.clients_per_round, len(train_ids))
-    sel = engine.select(rng, train_ids, m, 0, counts[train_ids])
+    sel = sampling.make_sampler(flcfg.sampling_config)(
+        rng, train_ids, m, 0, counts[train_ids])
     bidx = partition.ragged_minibatch_indices(rng, counts[sel], steps,
                                               flcfg.batch_size)
     x, y, w = provider.round_batch(sel)
-    wt = torch.from_numpy(w).cuda()
-    if not engine.weighted:
-        wt = (wt > 0).float()
-    return (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(),
-            torch.from_numpy(bidx).cuda(), wt)
+    return x, y, bidx, w
 
 
 def _stage_split(engine, params, locals_, client_loss, w, reps=5):
@@ -1381,7 +1383,10 @@ def train_dp_slice(seed, phase6):
             and not any(getattr(t, "is_masker", False)
                         for t in clear.transforms), "clear stack")
     params, _ = engine.init(seeded_generator(seed, 0))
-    x, y, bidx, w = _round0(engine, provider, flcfg, seed, steps)
+    x, y, bidx, w = (torch.from_numpy(a).cuda()
+                     for a in _round0(provider, flcfg, seed, steps))
+    if not engine.weighted:
+        w = (w > 0).float()
     keys, rk = engine.round_keys(0, w.shape[0]), engine.base_round_key(0)
     loc = {}
     for impl in ("kernel", "torch"):
@@ -1438,6 +1443,465 @@ def train_dp_slice(seed, phase6):
               int((d > 0).sum()) for d in diffs)),
           "stage": stage})
     return counts["lstm_cell"]
+
+
+# --------------------------------------------------------------- phase 8
+# the rank-sharded round (core/aggregation.py): phase 6's setting for one
+# round (launch/train.py's defaults, 100 clients x 365 days, 411 local
+# steps), flat and hierarchical, on one NCCL rank (8a) and on four gloo
+# ranks sharing the one card, 25 clients a rank on the kernel's grid (8b);
+# the ring case adds phase 7's DP knobs (masks across ranks)
+MESH_RANKS = 4
+MESH_TIMEOUT_S = 600
+
+
+class _TimedReduce:
+    """An aggregator whose ``reduce`` also adds its host wall (the card
+    synchronised on both sides) to ``seconds``."""
+
+    def __init__(self, agg):
+        self.agg, self.seconds, self.calls = agg, 0.0, 0
+        self.mesh_axes = agg.mesh_axes
+
+    def reduce(self, x):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = self.agg.reduce(x)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return y
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_round(engine, params_np, data):
+    """One round of ``engine`` from ``params_np`` on round-0 ``data``; its
+    aggregator timed.  Returns (params as numpy, loss, wall s, reduce s,
+    reduce calls)."""
+    import torch
+    from repro_torch.models import forecaster
+
+    timed = engine.agg = _TimedReduce(engine.agg)
+    p, s = engine.init(params=params_np)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, s, loss = engine.step(p, s, *data, round_idx=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (forecaster.params_to_numpy(p), float(loss), wall, timed.seconds,
+            timed.calls)
+
+
+def _mesh_cases(seed):
+    """(fcfg, {case: FLConfig kwargs}): phase 6's configuration for one
+    round, and the same under phase 7's DP knobs (the ring)."""
+    from repro_torch.launch import train
+
+    _, fcfg, flcfg = train.configs(["--rounds", "1", "--seed", str(seed)])
+    kw = dataclasses.asdict(flcfg)
+    return fcfg, {"identity": kw, "ring": dict(kw, **DP)}
+
+
+def _mesh_engines(fcfg, kw, meshes):
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import fedavg
+
+    for topo, mesh in meshes.items():
+        yield topo, fedavg.RoundEngine(
+            fcfg, FLConfig(**dict(kw, aggregation=topo,
+                                  n_regions=mesh.shape.get("region", 0))),
+            mesh=mesh, device="cuda")
+
+
+def _gloo_rank(rank, world, init, data_dir, seed, params):
+    """Phase 8b's rank program (spawned): join the gloo group, run one
+    round of each case flat over every rank and hierarchical 2 x 2 on the
+    card, write params, loss, wall and reduce time to
+    ``<data_dir>/rank<r>.npz``."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import AggregationConfig
+    from repro_torch.core import aggregation
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        ops.build()                    # the parent's build, loaded
+        data = [np.load(Path(data_dir) / f"{k}.npy", mmap_mode="c")
+                for k in ("x", "y", "bidx", "w")]
+        fcfg, cases = _mesh_cases(seed)
+        meshes = {"flat": aggregation.make_mesh(AggregationConfig()),
+                  "hierarchical": aggregation.make_mesh(AggregationConfig(
+                      kind="hierarchical", n_regions=2))}
+        out = {}
+        ops.reset_launch_counts()
+        for case, kw in cases.items():
+            for topo, engine in _mesh_engines(fcfg, kw, meshes):
+                p, loss, wall, red, calls = _mesh_round(engine, params,
+                                                        data)
+                for k, v in _flat_params(p).items():
+                    out[f"{case}.{topo}.{k}"] = v
+                out[f"{case}.{topo}.stats"] = np.array([loss, wall, red,
+                                                        calls])
+        out["launches"] = np.array(ops.launch_counts()["lstm_cell"])
+        np.savez(Path(data_dir) / f"rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _flat_params(p):
+    return {**{f"layers.{k}": p["layers"][0][k] for k in ("wx", "wh", "b")},
+            **{f"head.{k}": p["head"][k] for k in ("w", "b")}}
+
+
+def _params_equal(a, b):
+    import numpy as np
+    return all(np.array_equal(x, y) for x, y in zip(
+        _flat_params(a).values(), _flat_params(b).values()))
+
+
+def _params_close(a, b, rtol, atol):
+    """Worst error over rtol / atol (1 = at the tolerance)."""
+    import numpy as np
+    return max(float(np.max(np.abs(x - y) / (atol + rtol * np.abs(y))))
+               for x, y in zip(_flat_params(a).values(),
+                               _flat_params(b).values()))
+
+
+def mesh_slice(seed):
+    """The rank-sharded round on the card (phase 8).  8a: one NCCL rank,
+    flat and hierarchical 1 x 1, one round each of phase 6's setting and of
+    its ring case, bit-equal to the local round.  8b: four gloo ranks
+    spawned on the one card (the kernels built once here, loaded by each
+    rank), flat 4 and hierarchical 2 x 2, 25 clients a rank: held to the
+    local round at rtol 1e-6 / atol 1e-7 (loss rtol 1e-6), the ring case
+    bit-equal, every rank's params equal.  Returns the lstm_cell launches
+    of the mesh rounds (8a, 8b)."""
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+    from repro_torch.configs.base import AggregationConfig, FLConfig
+    from repro_torch.core import aggregation, fedavg
+    from repro_torch.data import partition, synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.models import forecaster
+    from repro_torch.models.layers import seeded_generator
+
+    fcfg, cases = _mesh_cases(seed)
+    flcfg = FLConfig(**cases["identity"])
+    provider = fedavg._as_provider(synthetic.generate_buildings(
+        "CA", list(range(flcfg.n_clients)), days=365), fcfg)
+    steps = partition.local_steps(provider.n_win_max, flcfg.batch_size,
+                                  flcfg.local_epochs)
+    data = _round0(provider, flcfg, seed, steps)
+    params = forecaster.params_to_numpy(forecaster.init_forecaster(
+        seeded_generator(seed, 0), fcfg))
+    local = {}
+    for case, kw in cases.items():
+        e = fedavg.RoundEngine(fcfg, FLConfig(**kw), device="cuda")
+        local[case] = _mesh_round(e, params, data)
+
+    # ---- 8a: one NCCL rank
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        meshes = {"flat": aggregation.make_mesh(AggregationConfig()),
+                  "hierarchical": aggregation.make_mesh(AggregationConfig(
+                      kind="hierarchical"))}
+        require(meshes["hierarchical"].shape == {"region": 1, "clients": 1}
+                and dist.get_backend() == "nccl", "phase 8a mesh")
+        nccl = {}
+        ops.reset_launch_counts()
+        for case, kw in cases.items():
+            for topo, engine in _mesh_engines(fcfg, kw, meshes):
+                nccl[f"{case}.{topo}"] = _mesh_round(engine, params, data)
+        nccl_launches = ops.launch_counts()["lstm_cell"]
+    finally:
+        dist.destroy_process_group()
+    require(nccl_launches == 4 * steps, f"phase 8a launches {nccl_launches},"
+            f" expected 4 rounds x {steps} steps")
+    for key, r in nccl.items():
+        want = local[key.split(".")[0]]
+        require(_params_equal(r[0], want[0]) and r[1] == want[1],
+                f"phase 8a {key}: the one-rank NCCL round differs from the "
+                "local round")
+
+    # ---- 8b: four gloo ranks on the one card
+    work = Path(tempfile.mkdtemp(prefix="mesh8b_"))
+    for k, a in zip(("x", "y", "bidx", "w"), data):
+        np.save(work / f"{k}.npy", a)
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(_gloo_rank, args=(MESH_RANKS,
+                                                str(work / "pg_init"),
+                                                str(work), seed, params),
+                              nprocs=MESH_RANKS, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.05)):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise RuntimeError(f"phase 8b ranks not done in "
+                               f"{MESH_TIMEOUT_S} s")
+    spawn_s = time.perf_counter() - t0
+    ranks = [dict(np.load(work / f"rank{r}.npz")) for r in range(MESH_RANKS)]
+    gloo, worst = {}, {}
+    for case in cases:
+        for topo in ("flat", "hierarchical"):
+            key = f"{case}.{topo}"
+            got = [({"layers": [{k: r[f"{key}.layers.{k}"]
+                                 for k in ("wx", "wh", "b")}],
+                     "head": {k: r[f"{key}.head.{k}"] for k in ("w", "b")}},
+                    r[f"{key}.stats"]) for r in ranks]
+            want_p, want_l = local[case][0], local[case][1]
+            require(all(_params_equal(g[0], got[0][0]) for g in got),
+                    f"phase 8b {key}: ranks hold different params")
+            if case == "ring":
+                require(_params_equal(got[0][0], want_p),
+                        f"phase 8b {key}: the ring round differs from the "
+                        "local one")
+            err = _params_close(got[0][0], want_p, 1e-6, 1e-7)
+            lerr = abs(got[0][1][0] - want_l) / (1e-6 * abs(want_l))
+            require(err <= 1.0 and lerr <= 1.0, f"phase 8b {key}: params "
+                    f"{err:.3g}, loss {lerr:.3g} of the tolerance")
+            worst[key] = {"params_over_tol": err, "loss_over_tol": lerr,
+                          "bit_equal_local": _params_equal(got[0][0],
+                                                           want_p)}
+            gloo[key] = {"wall_s_by_rank": [float(g[1][1]) for g in got],
+                         "reduce_s_by_rank": [float(g[1][2]) for g in got],
+                         "reduce_calls": int(got[0][1][3])}
+    gloo_launches = [int(r["launches"]) for r in ranks]
+    require(gloo_launches == [4 * steps] * MESH_RANKS,
+            f"phase 8b launches by rank {gloo_launches}, expected 4 rounds x "
+            f"{steps} steps each")
+
+    emit({"phase": "mesh", "cfg": dataclasses.asdict(fcfg),
+          "clients": int(data[3].shape[0]), "local_steps": steps,
+          "cases": {k: {kk: v for kk, v in kw.items()
+                        if kk in ("dp_clip", "dp_noise", "quantize_bits",
+                                  "secure_agg")} for k, kw in cases.items()},
+          "local": {k: {"loss": v[1], "wall_s": v[2]}
+                    for k, v in local.items()},
+          "nccl_1": {k: {"loss": v[1], "wall_s": v[2], "reduce_s": v[3],
+                         "reduce_calls": v[4], "bit_equal_local": True}
+                     for k, v in nccl.items()},
+          "nccl_launches": nccl_launches,
+          "gloo_4": {"ranks": MESH_RANKS, "clients_per_rank":
+                     int(data[3].shape[0]) // MESH_RANKS,
+                     "spawn_to_join_s": spawn_s, "by_case": gloo,
+                     "vs_local": worst, "launches_by_rank": gloo_launches}})
+    return nccl_launches, sum(gloo_launches)
+
+
+# --------------------------------------------------------------- phase 9
+# semi-synchronous rounds: the pacing setting of
+# benchmarks/bench_scalability.py (usage lines 60-61, run_pacing at
+# :298-340): 500 CA buildings x 120 days, m = 32, m' = 48 (over_select
+# 1.5), buffer_k = 32, lognormal stragglers of jitter 1.0, alpha 0.5,
+# fedavg_weighted, ew_mse, lr 0.05; rounds 12 -> 6; 50 unseen buildings
+PACING = dict(n_clients=500, clients_per_round=32, rounds=6, lr=0.05,
+              loss="ew_mse", n_clusters=0, server_opt="fedavg_weighted",
+              stragglers="lognormal", straggler_jitter=1.0)
+SEMI = dict(mode="semi_sync", over_select=1.5, buffer_k=32,
+            staleness_alpha=0.5)
+CHURN = dict(dropout_prob=0.3, timeout_rounds=1, quantize_bits=8,
+             dp_clip=1.0)
+PACING_DAYS, PACING_HELD, KILL_AT = 120, 50, 3
+
+
+class _Engines:
+    """Record the RoundEngines ``fedavg.run_federated_training`` builds
+    (their SemiSyncState counters are the phase's readout)."""
+
+    def __enter__(self):
+        from repro_torch.core import fedavg
+        self.real, self.built = fedavg.RoundEngine, []
+        built = self.built
+
+        class Recorded(self.real):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                built.append(self)
+
+        fedavg.RoundEngine = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import fedavg
+        fedavg.RoundEngine = self.real
+
+
+def _json_floats(a):
+    """A float array as a JSON list, ``nan`` (a flush that folds nothing)
+    as null."""
+    import numpy as np
+    return [float(v) if np.isfinite(v) else None for v in a]
+
+
+def _same_run(a, b):
+    """Histories (nan == nan) and params of two FLResults bit for bit."""
+    import numpy as np
+    return (all(np.array_equal(getattr(a, k), getattr(b, k), equal_nan=True)
+                for k in ("loss_history", "sim_times", "eps_history"))
+            and _params_equal(a.params, b.params))
+
+
+def pacing_slice(seed):
+    """Semi-synchronous rounds on the card (phase 9).  The main path:
+    ``run_federated_training`` at PACING + SEMI on the kernel route (its
+    launches: rounds x local steps, every round dispatching m' clients),
+    the sync run on the same latency model, held-out accuracy on 50
+    unseen buildings.  Then: the kernel route against the plain route on
+    the first 2 rounds at phase 6's tolerances, ``sim_times`` equal; the
+    same run under dropout 0.3 / timeout 1 with the 8-bit ring, clip 1.0
+    and secure aggregation, bit-equal to the ring-clear cohort-atomic run
+    with re-keys; that run twice (determinism) and killed at round 3 and
+    resumed from its checkpoint, bit-equal; ``ModelRegistry``'s poll of
+    the written checkpoint publishes generation 6.  Returns the lstm_cell
+    launches of the semi-sync and churned main runs."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.configs.base import FLConfig, ForecasterConfig
+    from repro_torch.core import fedavg
+    from repro_torch.data import partition, windows
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ModelRegistry
+
+    fcfg = ForecasterConfig()
+    provider = windows.ClientWindowProvider.from_synthetic(
+        "CA", range(PACING["n_clients"]), fcfg.lookback, fcfg.horizon,
+        days=PACING_DAYS)
+    held = windows.ClientWindowProvider.from_synthetic(
+        "CA", range(PACING["n_clients"], PACING["n_clients"] + PACING_HELD),
+        fcfg.lookback, fcfg.horizon, days=PACING_DAYS)
+    steps = partition.local_steps(provider.n_win_max, 64, 1)
+    semi = FLConfig(**PACING, **SEMI, seed=seed)
+    sync = FLConfig(**PACING, seed=seed)
+
+    # ---- the main path
+    ops.reset_launch_counts()
+    with _Engines() as rec:
+        t0 = time.perf_counter()
+        res = fedavg.run_federated_training(provider, fcfg, semi,
+                                            device="cuda")[-1]
+        semi_s = time.perf_counter() - t0
+    launches = ops.launch_counts()["lstm_cell"]
+    ss = rec.built[-1].async_state
+    require(launches == semi.rounds * steps, f"phase 9 launches {launches},"
+            f" expected {semi.rounds} x {steps}")
+    require(np.isfinite(res.loss_history).all()
+            and ss.late_folds > 0, f"semi-sync run {res.loss_history}, "
+            f"late folds {ss.late_folds}")
+    acc = fedavg.evaluate_unseen_clients(res.params, held, fcfg,
+                                         device="cuda")
+    acc = {k: acc[k] for k in ("accuracy", "mape", "rmse")}
+    require(all(np.isfinite(v) for v in acc.values())
+            and 0 <= acc["accuracy"] <= 100, f"held-out {acc}")
+    t0 = time.perf_counter()
+    res_sync = fedavg.run_federated_training(provider, fcfg, sync,
+                                             device="cuda")[-1]
+    sync_s = time.perf_counter() - t0
+
+    # ---- the kernel route against the plain route, 2 rounds
+    two = dataclasses.replace(semi, rounds=CHECK_ROUNDS)
+    kern = fedavg.run_federated_training(provider, fcfg, two, device="cuda")
+    plain = fedavg.run_federated_training(provider, fcfg, two,
+                                          cell_impl="torch", device="cuda")
+    dev = _route_deviation(kern, plain)
+    require(max(dev.values()) <= 1.0
+            and np.array_equal(kern[-1].sim_times, plain[-1].sim_times),
+            f"phase 9 kernel vs plain route {dev}")
+
+    # ---- churn + ring + secure aggregation; determinism; kill and resume
+    masked = FLConfig(**PACING, **SEMI, **CHURN, secure_agg=True, seed=seed)
+    clear = FLConfig(**PACING, **SEMI, **CHURN, quantize_ring=True,
+                     cohort_atomic=True, seed=seed)
+    ck_dir = Path(tempfile.mkdtemp(prefix="pacing9_"))
+    ops.reset_launch_counts()
+    with _Engines() as rec:
+        t0 = time.perf_counter()
+        r_masked = fedavg.run_federated_training(provider, fcfg, masked,
+                                                 device="cuda")[-1]
+        churn_s = time.perf_counter() - t0
+    churn_launches = ops.launch_counts()["lstm_cell"]
+    css = rec.built[-1].async_state
+    require(churn_launches == masked.rounds * steps,
+            f"phase 9 churn launches {churn_launches}")
+    r_clear = fedavg.run_federated_training(provider, fcfg, clear,
+                                            device="cuda")[-1]
+    require(css.rekeys > 0 and _same_run(r_masked, r_clear)
+            and np.isfinite(r_masked.loss_history).any(),
+            f"ring-masked run differs from the ring-clear one (re-keys "
+            f"{css.rekeys})")
+    ck = ck_dir / "full"
+    r_again = fedavg.run_federated_training(provider, fcfg, masked,
+                                            device="cuda",
+                                            checkpoint_path=ck)[-1]
+    require(_same_run(r_again, r_masked),
+            "the churned run differs between two runs on the card")
+    kill = ck_dir / "kill"
+    fedavg.run_federated_training(provider, fcfg, masked, device="cuda",
+                                  checkpoint_path=kill,
+                                  stop_after_rounds=KILL_AT)
+    r_resumed = fedavg.run_federated_training(provider, fcfg, masked,
+                                              device="cuda",
+                                              checkpoint_path=kill)[-1]
+    require(_same_run(r_resumed, r_masked),
+            "the resumed run differs from the uninterrupted one")
+    reg = ModelRegistry(device="cuda")
+    handles = reg.poll_checkpoint(str(ck) + "*", fcfg)
+    require([h.generation for h in handles] == [masked.rounds]
+            and reg.generation(-1) == masked.rounds,
+            f"poll_checkpoint published {[h.generation for h in handles]}")
+
+    emit({"phase": "pacing", "cfg": dataclasses.asdict(fcfg),
+          "clients": PACING["n_clients"], "days": PACING_DAYS,
+          "m": PACING["clients_per_round"],
+          "m_prime": rec.built[-1].dispatch_m(PACING["clients_per_round"]),
+          "buffer_k": SEMI["buffer_k"], "rounds": semi.rounds,
+          "cut": "rounds 12 -> 6 (bench_scalability's usage line 60)",
+          "local_steps_per_round": steps,
+          "wall_s_per_round": semi_s / semi.rounds,
+          "sync_wall_s_per_round": sync_s / sync.rounds,
+          "sim_s": res.sim_times.tolist(),
+          "sync_sim_s": res_sync.sim_times.tolist(),
+          "loss_history": _json_floats(res.loss_history),
+          "sync_loss_history": _json_floats(res_sync.loss_history),
+          "late_folds": ss.late_folds, "max_staleness": ss.max_staleness,
+          "pending_at_end": len(ss.pending),
+          "heldout_buildings": PACING_HELD, "heldout": acc,
+          "launches": launches, "kernel_vs_plain": dev,
+          "churn": {"knobs": dict(CHURN, secure_agg=True),
+                    "wall_s_per_round": churn_s / masked.rounds,
+                    "loss_history": _json_floats(r_masked.loss_history),
+                    "sim_s": r_masked.sim_times.tolist(),
+                    "rekeys": css.rekeys, "abandoned": css.abandoned,
+                    "empty_flushes": css.empty_flushes,
+                    "late_folds": css.late_folds,
+                    "masked_equals_clear_bitwise": True,
+                    "rerun_bitwise": True, "kill_at": KILL_AT,
+                    "resume_bitwise": True, "launches": churn_launches},
+          "poll_generation": reg.generation(-1)})
+    return launches, churn_launches
 
 
 def _device_profile(run, steps):
@@ -1598,6 +2062,20 @@ def main():
     dp_launches = train_dp_slice(args.seed, phase6)
     require(dp_launches > 0, "lstm_cell never launched on the DP path")
 
+    # ---- phase 8: the rank-sharded round, one NCCL rank and four gloo
+    # ranks on the card, flat and hierarchical
+    nccl_launches, gloo_launches = mesh_slice(args.seed)
+    require(nccl_launches > 0 and gloo_launches > 0,
+            "lstm_cell never launched on the mesh paths")
+
+    # ---- phase 9: semi-synchronous rounds, churn and re-keying, resume
+    semi_launches, churn_launches = pacing_slice(args.seed)
+    require(semi_launches > 0 and churn_launches > 0,
+            "lstm_cell never launched on the semi-sync paths")
+    lstm_more = {"mesh_nccl_1": nccl_launches, "mesh_gloo_4": gloo_launches,
+                 "semi_sync": semi_launches,
+                 "semi_sync_churn": churn_launches}
+
     replaces = {"lstm_cell": "src/repro/kernels/lstm_cell.py:24",
                 "gru_cell": "src/repro/kernels/gru_cell.py:17",
                 "flash_attention": "src/repro/kernels/flash_attention.py:28"}
@@ -1614,7 +2092,9 @@ def main():
                                      "serve_int8": int8_launches[n],
                                      "train": train_launches[n],
                                      "train_dp": (dp_launches
-                                                  if n == "lstm_cell" else 0)},
+                                                  if n == "lstm_cell" else 0),
+                                     **{k: (v if n == "lstm_cell" else 0)
+                                        for k, v in lstm_more.items()}},
                 "train_shape": {
                     "M": tt["M"], "B": tt["B"], "T": tt["T"], "I": tt["I"],
                     "H": tt["H"], "max_abs_err": train_errs[n],
@@ -1641,7 +2121,8 @@ def main():
          "replaces": replaces[n],
          "launches": (launches[n] + train_launches.get(n, 0)
                       + int8_launches.get(n, 0)
-                      + (dp_launches if n == "lstm_cell" else 0)),
+                      + (dp_launches + sum(lstm_more.values())
+                         if n == "lstm_cell" else 0)),
          "max_abs_err": errs[n], "ms": times[n]["ms"],
          "plain_ms": times[n]["plain_ms"], "bound_ms": times[n]["bound_ms"],
          "bound_by": times[n]["bound_by"],

@@ -149,13 +149,19 @@ def mask_contribution(masker: PairwiseMasker, like, slot, weights,
     ring path), for cohort weights ``weights`` under ``round_key``.  The
     algebraic basis of Bonawitz-style re-keying: subtracting it replays the
     original masking's draws exactly.  ``like``: ONE client's tree (shapes
-    and dtypes); returns a tree of that shape."""
+    and dtypes); returns a tree of that shape.  ``slot`` may also be a 1-D
+    sequence of slots: their trees come back stacked (leading axis = the
+    slots), each equal to its own call, from one draw of the cohort's
+    masks."""
     weights = torch.as_tensor(weights, dtype=torch.float32)
     dev = weights.device
-    zeros = {"t": [torch.zeros((1,) + tuple(x.shape), dtype=x.dtype,
-                               device=dev) for x in sorted_leaves(like)]}
-    slots = torch.tensor([int(slot)], device=dev)
+    slots = torch.as_tensor(slot, device=dev).reshape(-1).long()
+    zeros = {"t": [torch.zeros((slots.numel(),) + tuple(x.shape),
+                               dtype=x.dtype, device=dev)
+                   for x in sorted_leaves(like)]}
     out = masker(zeros, None, CohortContext(slots, weights, round_key))
+    if torch.as_tensor(slot).dim():
+        return unflatten_sorted(like, out["t"])
     return unflatten_sorted(like, [x[0] for x in out["t"]])
 
 

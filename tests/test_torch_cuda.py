@@ -517,3 +517,85 @@ def test_int8_publish_on_card_matches_the_cpu(cuda):
     for a, b in zip(tree_leaves(hs[0].params),
                     tree_leaves(hs[1].params)):
         assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+def _small_fl(**kw):
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data import synthetic
+
+    series = synthetic.generate_buildings("CA", list(range(6)), days=20)
+    base = dict(n_clients=6, clients_per_round=4, rounds=6, n_clusters=0,
+                batch_size=16, lr=0.05, loss="ew_mse", seed=0,
+                mode="semi_sync", over_select=1.5, staleness_alpha=0.5,
+                stragglers="lognormal", straggler_jitter=1.0)
+    return series, FLConfig(**dict(base, **kw))
+
+
+def _same_result(a, b):
+    for k in ("loss_history", "sim_times", "eps_history"):
+        np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+    for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_semi_sync_churn_on_card_rekeys_and_resumes(cuda, tmp_path):
+    """Semi-sync under dropout with the 8-bit ring and secure aggregation
+    on the card: the event schedule equals the CPU run's, the masked run
+    equals the ring-clear cohort-atomic run bit for bit, and a run killed
+    after 3 rounds resumes from its checkpoint bit for bit."""
+    from repro_torch.core import fedavg
+
+    cfg = ForecasterConfig(hidden_dim=16)
+    churn = dict(dropout_prob=0.3, timeout_rounds=1, quantize_bits=8,
+                 dp_clip=1.0)
+    series, masked = _small_fl(**churn, secure_agg=True)
+    _, clear = _small_fl(**churn, quantize_ring=True, cohort_atomic=True)
+    run = fedavg.run_federated_training
+    full = run(series, cfg, masked, device=cuda)[-1]
+    _same_result(run(series, cfg, clear, device=cuda)[-1], full)
+    np.testing.assert_array_equal(
+        run(series, cfg, masked, device="cpu")[-1].sim_times, full.sim_times)
+    assert np.isfinite(full.loss_history).any()
+    ck = tmp_path / "ck"
+    run(series, cfg, masked, device=cuda, checkpoint_path=ck,
+        stop_after_rounds=3)
+    _same_result(run(series, cfg, masked, device=cuda,
+                     checkpoint_path=ck)[-1], full)
+
+
+@pytest.mark.parametrize("extra", [dict(), dict(
+    dp_clip=1.0, dp_noise=0.5, quantize_bits=8, secure_agg=True)])
+def test_one_nccl_rank_mesh_round_equals_local(cuda, tmp_path, extra):
+    """A round on a mesh of one NCCL rank (flat and hierarchical 1 x 1)
+    equals the local round bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import AggregationConfig, FLConfig
+    from repro_torch.core import aggregation, fedavg
+
+    cfg = ForecasterConfig(hidden_dim=16)
+    params = forecaster.init_forecaster(torch.Generator().manual_seed(5), cfg)
+    r = np.random.default_rng(4)
+    x = r.random((4, 120, 8, 1)).astype(np.float32)
+    y = r.random((4, 120, 4)).astype(np.float32)
+    bidx = r.integers(0, 120, (4, 3, 16))
+    w = np.asarray([17.0, 0.0, 29.0, 11.0], np.float32)
+    kw = dict(extra, lr=0.05, seed=3)
+
+    def one(mesh=None, **more):
+        e = fedavg.RoundEngine(cfg, FLConfig(**kw, **more), mesh=mesh,
+                               device=cuda)
+        p, s = e.init(params=params)
+        return e.step(p, s, x, y, bidx, w, round_idx=1, stream=2)
+
+    want_p, _, want_l = one()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        for kind in ("flat", "hierarchical"):
+            mesh = aggregation.make_mesh(AggregationConfig(kind=kind))
+            p, _, loss = one(mesh, aggregation=kind)
+            assert torch.equal(loss, want_l)
+            for a, b in zip(tree_leaves(p), tree_leaves(want_p)):
+                assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

@@ -469,18 +469,43 @@ def test_train_cli_on_cpu(capsys):
     (dict(mode="semi_sync"), "A10"), (dict(absent_prob=0.1), "A10"),
 ])
 def test_unported_stages_raise_naming_their_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        fedavg.RoundEngine(ForecasterConfig(), FLConfig(**kw), device=CPU)
+    """A9 and A10 are ported: what the engine refused naming them now
+    builds as the reference's engine does, and hierarchical aggregation
+    without a mesh raises the reference's ValueError."""
+    if item == "A9":
+        for engine in (lambda: jfed.RoundEngine(JForecasterConfig(),
+                                                JFLConfig(**kw)),
+                       lambda: fedavg.RoundEngine(ForecasterConfig(),
+                                                  FLConfig(**kw),
+                                                  device=CPU)):
+            with pytest.raises(ValueError, match="requires a mesh"):
+                engine()
+        return
+    j = jfed.RoundEngine(JForecasterConfig(), JFLConfig(**kw))
+    t = fedavg.RoundEngine(ForecasterConfig(), FLConfig(**kw), device=CPU)
+    assert (t.dispatch_m(8, 5), t.buffer_k, t.sim_time) == \
+        (j.dispatch_m(8, 5), j.buffer_k, j.sim_time)
 
 
-def test_unported_driver_options_raise():
+def test_unported_driver_options_raise(tmp_path):
+    """A mesh and a checkpoint path, once refused, now run: on a one-rank
+    mesh, writing a checkpoint, the run equals the plain one bit for
+    bit."""
+    from repro_torch import checkpoint
+    from repro_torch.core import aggregation
     series = synthetic.generate_buildings("CA", [0, 1], days=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        fedavg.run_federated_training(series, ForecasterConfig(), FLConfig(),
-                                      mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="A10"):
-        fedavg.run_federated_training(series, ForecasterConfig(), FLConfig(),
-                                      checkpoint_path="ckpt", device=CPU)
+    kw = dict(n_clients=2, clients_per_round=2, rounds=2, n_clusters=0,
+              batch_size=32)
+    cfg = ForecasterConfig(hidden_dim=8)
+    plain = fedavg.run_federated_training(series, cfg, FLConfig(**kw),
+                                          device=CPU)[-1]
+    ck = tmp_path / "ck"
+    got = fedavg.run_federated_training(series, cfg, FLConfig(**kw),
+                                        mesh=aggregation.make_mesh(),
+                                        checkpoint_path=ck, device=CPU)[-1]
+    np.testing.assert_array_equal(got.loss_history, plain.loss_history)
+    jax.tree.map(np.testing.assert_array_equal, got.params, plain.params)
+    assert checkpoint.generation(ck) == 2
 
 
 def test_training_entry_points_default_to_the_card(monkeypatch):
