@@ -8,10 +8,17 @@ fused recurrent layers, one launch per layer) at the paper forecaster's
 full width for the LSTM and a 2-layer GRU, checks the results against the
 same engine on the CPU (the LSTM also from int8 weights, whose grids must
 equal the CPU publish's bit for bit), profiles one full flush, times the
-kernels at their paths' shapes beside cuDNN's sequence calls, drives the dense-LM prefill
-and decode steps at qwen3-14b's full width (8 of its 40 layers) through the
-flash attention kernel (bf16: wgmma on the tensor cores fed by TMA; fp32:
-the CUDA-core kernel), holds them against the plain attention route, then
+kernels at their paths' shapes beside cuDNN's sequence calls, drives the
+dense-LM prefill and decode steps at qwen3-14b's full width (8 of its 40
+layers) through the flash attention kernel (bf16: wgmma on the tensor
+cores fed by TMA; fp32: the CUDA-core kernel; head dims 16, 32, 64, 112
+and 128, each held against its plain version in phase 2b, hd 128, 112 and
+64 timed in phase 4b), holds them against the plain attention route, runs
+phase 5b, the LM families at full width and cut depth (codeqwen1.5-7b,
+qwen2-72b, dbrx-132b, deepseek-v3-671b with MLA and MoE, zamba2-7b's
+Mamba2 hybrid with its shared attention at hd 112, xlstm-1.3b, the
+llava-next-34b VLM, musicgen-medium's 4 codebooks: a 2 x 2048 prefill
+and 8 decode steps each, kernel route against plain route), then
 trains the forecaster federatedly (the paper's Algorithm 1: 100 clients x
 365 days, every local step's forward one launch of the layer kernel for
 all clients, its backward the plain layer's VJP) on the kernel route
@@ -71,7 +78,10 @@ LM_ARCH, LM_LAYERS, LM_BATCH, LM_PROMPT, LM_NEW = "qwen3-14b", 8, 2, 4096, 32
 # unaligned S, the LM slice's prefill shape, full and windowed; then the
 # bf16 kernel's tile (128 rows / keys) and TMA box edges: S of 1, half a
 # tile, a tile less and more one row, 4097; a window inside one tile and
-# one across tiles; hd 16, 32, 64, 128; GQA 5:1 at hd 128
+# one across tiles; hd 16, 32, 64, 128; GQA 5:1 at hd 128; then the LM
+# families' prefills (2 x 2048): musicgen at hd 64 (24 heads), zamba2's
+# shared block at hd 112 (32 heads), and hd 112 with GQA 4:1, a window and
+# an unaligned S
 FLASH_SHAPES = [(2, 128, 4, 4, 32, 0), (2, 256, 8, 2, 64, 0),
                 (1, 256, 4, 1, 64, 0), (1, 512, 2, 2, 32, 128),
                 (3, 384, 6, 2, 16, 0), (2, 200, 4, 2, 64, 0),
@@ -80,8 +90,13 @@ FLASH_SHAPES = [(2, 128, 4, 4, 32, 0), (2, 256, 8, 2, 64, 0),
                 (1, 1, 8, 2, 128, 0), (2, 64, 8, 2, 64, 0),
                 (1, 127, 4, 2, 32, 0), (1, 129, 4, 1, 16, 0),
                 (1, 4097, 8, 2, 128, 0), (1, 1000, 4, 2, 64, 48),
-                (1, 3000, 4, 2, 128, 1024), (2, 300, 10, 2, 128, 0)]
+                (1, 3000, 4, 2, 128, 1024), (2, 300, 10, 2, 128, 0),
+                (2, 2048, 24, 24, 64, 0), (2, 2048, 32, 32, 112, 0),
+                (1, 1000, 32, 8, 112, 300), (1, 1, 4, 4, 112, 0)]
 FLASH_SLICE = (2, 4096, 40, 8, 128)
+# phase 4b also times the families' head dims at their prefill shapes
+FLASH_FAMILY_SHAPES = {"zamba2_hd112": (2, 2048, 32, 32, 112),
+                       "musicgen_hd64": (2, 2048, 24, 24, 64)}
 
 
 def require(cond, msg):
@@ -741,19 +756,19 @@ def time_kernels(seed):
 
 
 # -------------------------------------------------------------- phase 4b
-def time_flash(seed):
+def time_flash(seed, shape=FLASH_SLICE, label="qwen3_14b_hd128"):
     """Flash kernel, its plain version and scaled_dot_product_attention at
-    the LM slice's prefill shape (B=2, S=4096, Hq=40, Hkv=8, hd=128, bf16,
-    causal), beside the bound: the causal FLOPs of these inputs on the bf16
-    tensor cores, or q, k, v read and o written once; with the achieved
-    TFLOP/s of the kernel and of the library call, and the kernel's share
-    of the bound (bound_ms / ms)."""
+    a prefill shape (default the LM slice's: B=2, S=4096, Hq=40, Hkv=8,
+    hd=128; bf16, causal), beside the bound: the causal FLOPs of these
+    inputs (at the real hd) on the bf16 tensor cores, or q, k, v read and o
+    written once; with the achieved TFLOP/s of the kernel and of the
+    library call, and the kernel's share of the bound (bound_ms / ms)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
-    B, S, Hq, Hkv, hd = FLASH_SLICE
+    B, S, Hq, Hkv, hd = shape
     gen = torch.Generator("cuda").manual_seed(seed + 3)
     q, k, v = (torch.randn(B, S, H, hd, generator=gen, device="cuda"
                            ).to(torch.bfloat16) for H in (Hq, Hkv, Hkv))
@@ -778,7 +793,7 @@ def time_flash(seed):
     _bound(out, BF16_TENSOR_FLOPS_PER_S)
     out["tflops"] = out["flops"] / (out["ms"] * 1e-3) / 1e12
     out["library_tflops"] = out["flops"] / (out["library_ms"] * 1e-3) / 1e12
-    emit({"phase": "flash_timing",
+    emit({"phase": "flash_timing", "label": label,
           "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
                     "dtype": "bfloat16", "causal": True},
           "median_of": 20, "flash_attention": out})
@@ -890,7 +905,7 @@ def lm_slice(seed):
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         ops.reset_launch_counts()
-        kern = lm_steps.generate(params, prompt, cfg, LM_NEW,
+        kern = lm_steps.generate(params, {"tokens": prompt}, cfg, LM_NEW,
                                  attn_impl="kernel")
         counts = ops.launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -898,7 +913,7 @@ def lm_slice(seed):
                            "flash_attention": cfg.n_layers},
                 f"launch counts {counts} in one prefill + {LM_NEW} decode "
                 f"steps, expected flash_attention = {cfg.n_layers} layers")
-        plain = lm_steps.generate(params, prompt, cfg, LM_NEW,
+        plain = lm_steps.generate(params, {"tokens": prompt}, cfg, LM_NEW,
                                   attn_impl="torch", feed=kern["tokens"])
         worst = []
         for a, b in zip([kern["prefill_logits"]] + kern["logits"],
@@ -914,7 +929,7 @@ def lm_slice(seed):
                     f"logit error {err:.4g} >= {bound:.4g}")
         # warm timings: the same path again, then the flash share of a
         # prefill from CUDA events around each flash call inside it
-        warm = lm_steps.generate(params, prompt, cfg, LM_NEW,
+        warm = lm_steps.generate(params, {"tokens": prompt}, cfg, LM_NEW,
                                  attn_impl="kernel", feed=kern["tokens"])
         spans, real = [], ops.flash_attention
 
@@ -934,7 +949,8 @@ def lm_slice(seed):
         ops.flash_attention = timed_flash
         try:
             start.record()
-            lm_steps.prefill_step(params, prompt, cfg, capacity=capacity)
+            lm_steps.prefill_step(params, {"tokens": prompt}, cfg,
+                                  capacity=capacity)
             end.record()
         finally:
             ops.flash_attention = real
@@ -964,6 +980,322 @@ def lm_slice(seed):
     del params, kern, plain, warm
     torch.cuda.empty_cache()
     return counts["flash_attention"]
+
+
+# -------------------------------------------------------------- phase 5b
+# the LM families at full width, depth cut where the weights or the phase's
+# time force it: (arch, config fields replaced, flash launches a prefill).
+# Only attention that is full-sequence GQA/MHA launches the kernel: one a
+# layer; zamba2's shared block once per group of 6 Mamba2 layers (81 // 6);
+# MLA (deepseek) takes the plain path, as the reference does; xLSTM has no
+# attention
+FAMILIES = [("codeqwen1.5-7b", {"n_layers": 4}, 4),
+            ("qwen2-72b", {"n_layers": 4}, 4),
+            ("dbrx-132b", {"n_layers": 4}, 4),
+            ("deepseek-v3-671b", {"n_layers": 3, "dense_layers": 1}, 0),
+            ("zamba2-7b", {}, 13),
+            ("xlstm-1.3b", {}, 0),
+            ("llava-next-34b", {"n_layers": 8}, 8),
+            ("musicgen-medium", {}, 48)]
+FAM_BATCH, FAM_PROMPT, FAM_NEW = 2, 2048, 8
+
+
+def _param_count(cfg):
+    """The leaves of ``cfg``'s parameter tree, counted from its dims:
+    ``ModelConfig.num_params()`` plus what it leaves out (norm scales, QKV
+    biases, MLA's latent norms, the Mamba2 block's conv bias, per-head
+    scalars and gated norm, the VLM projector, DeepSeek's MTP block, and
+    the audio heads past the first codebook's).  For xLSTM ``num_params``
+    is the reference's own approximation ("# approx" in
+    ``configs/base.py``), so its blocks are counted here exactly."""
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab_size
+    hd, H, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    attn_extra = 2 * d                                   # ln1, ln2
+    if cfg.mla is not None:
+        attn_extra += cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank
+    else:
+        attn_extra += cfg.qkv_bias * (H + 2 * Hkv) * hd \
+            + cfg.qk_norm * 2 * hd
+    if cfg.arch_type == "ssm":
+        x = cfg.xlstm
+        dm = int(x.mlstm_proj_factor * d)
+        nh = max(1, dm // x.mlstm_head_dim)
+        dff = int(x.slstm_proj_factor * d)
+        mlstm = d + 2 * d * dm + 4 * dm * dm + 2 * dm * nh + 2 * nh + dm \
+            + dm * d
+        slstm = d + 4 * d * d + 4 * d * (d // H) + 4 * d + d + 3 * d * dff
+        n_s = L // x.slstm_every
+        return (2 * V * d + d + (L - n_s) * mlstm + n_s * slstm)
+    n = cfg.num_params() + d                             # + final norm
+    if cfg.arch_type == "hybrid":
+        s = cfg.ssm
+        d_in = s.expand * d
+        nh = d_in // s.head_dim
+        n += L * (d + d_in + 2 * s.n_groups * s.state_dim + 3 * nh + d_in)
+        return n + attn_extra
+    n += L * attn_extra
+    if cfg.arch_type == "vlm":
+        n += cfg.frontend.embed_dim * d + d * d
+    if cfg.arch_type == "audio":
+        n += (cfg.frontend.n_codebooks - 1) * V * d     # cb_heads (d, K, V)
+    if cfg.mtp:
+        m = cfg.mla
+        mla = (d * m.q_lora_rank
+               + m.q_lora_rank * H * (m.qk_nope_dim + m.qk_rope_dim)
+               + d * (m.kv_lora_rank + m.qk_rope_dim)
+               + m.kv_lora_rank * H * (m.qk_nope_dim + m.v_head_dim)
+               + H * m.v_head_dim * d)
+        n += 2 * d * d + mla + 3 * d * cfg.d_ff + attn_extra + d
+    return n
+
+
+def _over_tol(kern, plain):
+    """Each compared step's max abs logit error over phase 5's bf16 bound
+    (FLASH_TOL scaled by the step's largest plain |logit|)."""
+    out = []
+    for a, b in zip([kern["prefill_logits"]] + kern["logits"],
+                    [plain["prefill_logits"]] + plain["logits"]):
+        bound = FLASH_TOL["bfloat16"] * max(float(b.float().abs().max())
+                                            + 1e-6, 1.0)
+        out.append(float((a.float() - b.float()).abs().max()) / bound)
+    return out
+
+
+def _set_misses(chosen, own):
+    """(G, S, k) bool: expert ``chosen[..., j]`` is not in the token's own
+    top-k set ``own``."""
+    return ~(chosen[..., :, None] == own[..., None, :]).any(-1)
+
+
+class _Routing:
+    """Wraps ``models/moe.py::_route`` for one run: records every call's
+    expert choices (``calls``); with ``forced`` (an earlier run's
+    ``calls``), routes each call on those choices instead, the gates from
+    this run's own router probabilities (renormalised, as ``_route``
+    does), and counts the (token, k) choices its own top-k set lacks
+    (``flips``) and the largest router-probability margin by which its own
+    k-th choice beat a forced one (``max_margin``).  As phase 5 feeds the
+    plain route the kernel route's tokens, this feeds it the kernel
+    route's routing, the other discrete choice of the path."""
+
+    def __init__(self, forced=None):
+        self.forced = None if forced is None else iter(forced)
+        self.calls, self.flips, self.max_margin = [], 0, 0.0
+
+    def route(self, router_w, x32, mcfg):
+        import torch
+        gates, own, aux = self.real(router_w, x32, mcfg)
+        if self.forced is None:
+            self.calls.append(own)
+            return gates, own, aux
+        chosen = next(self.forced)
+        probs = torch.softmax(torch.matmul(x32, router_w), dim=-1)
+        g = probs.gather(-1, chosen)
+        miss = _set_misses(chosen, own)
+        self.flips += int(miss.sum())
+        if bool(miss.any()):
+            kth = probs.gather(-1, own[..., -1:])            # own k-th prob
+            margin = (kth - g).masked_select(miss)
+            self.max_margin = max(self.max_margin, float(margin.max()))
+        self.calls.append(chosen)
+        return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9), \
+            chosen, aux
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real, moe._route = moe._route, self.route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self.real
+        if self.forced is not None and exc[0] is None:
+            require(next(self.forced, None) is None,
+                    "the forced run made fewer routing calls")
+
+
+class _FedBlocks:
+    """Wraps ``models/transformer.py::_dense_block_fwd`` / ``_dense_block_dec``
+    for one run: records the residual stream entering each call
+    (``inputs``); with ``fed`` (an earlier run's ``inputs``), replaces it
+    with the earlier run's.  Phase 5b feeds zamba2's plain route the
+    kernel route's stream at each call of the shared attention block, so
+    each group (6 Mamba2 layers and the block) of the plain route starts
+    where the kernel route's did: run free, the 81 bf16 layers amplify one
+    bf16 ulp of noise on the embeddings to 11.8 % of the largest logit on
+    an H100 (``tools/lm_route_sensitivity.py``), past phase 5's 3 %."""
+
+    def __init__(self, fed=None):
+        self.fed = None if fed is None else iter(fed)
+        self.inputs = []
+
+    def _wrap(self, real):
+        def block(p, x, *args, **kw):
+            if self.fed is not None:
+                x = next(self.fed)
+            self.inputs.append(x)
+            return real(p, x, *args, **kw)
+        return block
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+        self.real = tf._dense_block_fwd, tf._dense_block_dec
+        tf._dense_block_fwd, tf._dense_block_dec = map(self._wrap, self.real)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tf
+        tf._dense_block_fwd, tf._dense_block_dec = self.real
+        if self.fed is not None and exc[0] is None:
+            require(next(self.fed, None) is None,
+                    "the fed run made fewer block calls")
+
+
+def lm_families(seed):
+    """The LM families' inference paths (phase 5b): each of FAMILIES at full
+    width in bf16 from weights seeded on the card, through
+    ``launch/lm_steps.py``: a prefill of FAM_BATCH x FAM_PROMPT positions
+    (llava: 1,152 media embeddings + 896 text tokens; musicgen: 4
+    codebooks), then FAM_NEW greedy decode steps on the kernel route, then
+    the plain route on the same fed tokens and, for the MoE archs, the
+    same expert choices (``_Routing``), for zamba2 the same residual
+    stream entering each shared-block call (``_FedBlocks``), held at phase
+    5's bf16 bound scaled by the largest |logit|.  Those archs also run the
+    plain route free: its logits' distance and, for MoE, how many
+    (token, k) choices it makes otherwise are reported, not held (a
+    near-tie that flips sends a token through another expert, and the
+    change spreads through attention to later tokens and layers; zamba2's
+    81 layers amplify any bf16 rounding past the bound).  Asserts the parameter
+    count and each prefill's flash launches; times a warm prefill (host
+    wall and CUDA events) and warm decode steps.  Each model is freed
+    before the next.  Returns {arch: flash launches}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lm_steps
+    from repro_torch.models import transformer as tf
+
+    launches = {}
+    for i, (arch, cut, want_flash) in enumerate(FAMILIES):
+        t_arch = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        gen = torch.Generator("cuda").manual_seed(seed + 50 + i)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = tf.init_model(gen, cfg, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in _leaves(params))
+        require(n_params == _param_count(cfg),
+                f"{arch}: {n_params} params, its dims say "
+                f"{_param_count(cfg)} (num_params() {cfg.num_params()})")
+        batch = lm_steps.make_batch(cfg, FAM_BATCH, FAM_PROMPT, gen)
+        moe = cfg.moe is not None
+        hybrid = cfg.arch_type == "hybrid"
+        with torch.inference_mode():
+            with _Routing() as kern_routing, _FedBlocks() as kern_blocks:
+                ops.reset_launch_counts()
+                kern = lm_steps.generate(params, batch, cfg, FAM_NEW,
+                                         attn_impl="kernel")
+                counts = ops.launch_counts()
+            require(counts == {"lstm_cell": 0, "gru_cell": 0,
+                               "flash_attention": want_flash},
+                    f"{arch}: launch counts {counts} in one prefill + "
+                    f"{FAM_NEW} decode steps, expected flash_attention = "
+                    f"{want_flash}")
+            free = {}
+            if moe or hybrid:
+                # the plain route on its own choices and stream: reported,
+                # not held
+                with _Routing() as own:
+                    free_run = lm_steps.generate(params, batch, cfg,
+                                                 FAM_NEW, attn_impl="torch",
+                                                 feed=kern["tokens"])
+                flips = [int(_set_misses(a, b).sum()) for a, b in
+                         zip(kern_routing.calls, own.calls)]
+                free = {"over_tol_free": max(_over_tol(kern, free_run))}
+                if moe:
+                    free.update(routing_flips_free=sum(flips),
+                                routing_flips_free_by_call=flips[:8])
+                del free_run
+            # held: the plain route on the kernel route's tokens and, for
+            # the MoE archs, its expert choices, for the hybrid its stream
+            # at each shared-block call
+            with _Routing(forced=kern_routing.calls if moe else None
+                          ) as forced, \
+                    _FedBlocks(fed=kern_blocks.inputs if hybrid else None):
+                plain = lm_steps.generate(params, batch, cfg, FAM_NEW,
+                                          attn_impl="torch",
+                                          feed=kern["tokens"])
+            del kern_blocks
+            choices = sum(a.numel() for a in kern_routing.calls)
+            worst = _over_tol(kern, plain)
+            require(all(bool(torch.isfinite(a).all()) for a in
+                        [kern["prefill_logits"]] + kern["logits"]),
+                    f"{arch}: logits not finite")
+            require(max(worst) < 1.0, f"{arch}: kernel route vs plain "
+                    f"route: max abs logit error {max(worst):.4g} of phase "
+                    f"5's bound ({forced.flips} of {choices} routing "
+                    "choices the plain route would make otherwise)")
+            shp = (FAM_BATCH, 1, cfg.vocab_size)
+            if cfg.arch_type == "audio":
+                shp = (FAM_BATCH, cfg.frontend.n_codebooks, 1,
+                       cfg.vocab_size)
+            require(tuple(kern["prefill_logits"].shape) == shp,
+                    f"{arch}: last logits {tuple(kern['prefill_logits'].shape)}"
+                    f", expected {shp}")
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            # a warm prefill (host wall ending in a synchronise, CUDA events
+            # around it) and warm decode steps on its caches
+            S = lm_steps.seq_len(batch, cfg)
+            capacity = lm_steps.cache_capacity(
+                cfg, InputShape("lm", S + FAM_NEW, FAM_BATCH, "prefill"))
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            _, caches = lm_steps.prefill_step(params, batch, cfg,
+                                              capacity=capacity)
+            end.record()
+            torch.cuda.synchronize()
+            prefill_wall = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            for t in range(FAM_NEW):
+                lm_steps.decode_step(params, caches,
+                                     kern["tokens"][..., t:t + 1], S + t,
+                                     cfg)
+            torch.cuda.synchronize()
+            decode_ms = (time.perf_counter() - t0) * 1e3 / FAM_NEW
+        launches[arch] = counts["flash_attention"]
+        emit({"phase": "lm_family", "arch": arch,
+              "family": cfg.arch_type + ("+mla" if cfg.mla else ""),
+              "n_layers": cfg.n_layers,
+              "of_layers": get_config(arch).n_layers,
+              "d_model": cfg.d_model, "head_dim": cfg.resolved_head_dim,
+              "params": n_params, "num_params": cfg.num_params(),
+              "dtype": "bfloat16", "batch": FAM_BATCH,
+              "prompt_positions": S, "decode_steps": FAM_NEW,
+              "flash_launches_per_prefill": counts["flash_attention"],
+              "routing_choices": choices,
+              "fed": (["tokens"] + ["routing"] * moe
+                       + ["shared_block_inputs"] * hybrid),
+              "routing_flips_held": forced.flips,
+              "routing_flip_max_margin": forced.max_margin, **free,
+              "kernel_vs_plain_worst_over_tol": max(worst),
+              "over_tol_by_step": worst, "init_s": init_s,
+              "peak_memory_gib": peak_gib,
+              "prefill_wall_ms_first": kern["prefill_s"] * 1e3,
+              "prefill_wall_ms": prefill_wall,
+              "prefill_device_ms": start.elapsed_time(end),
+              "prefill_wall_ms_plain_route": plain["prefill_s"] * 1e3,
+              "decode_ms_per_step": decode_ms,
+              "phase_s": time.perf_counter() - t_arch,
+              "tokens": kern["tokens"][0].tolist()})
+        del params, batch, kern, plain, caches
+        torch.cuda.empty_cache()
+    return launches
 
 
 # --------------------------------------------------------------- phase 6
@@ -1941,8 +2273,8 @@ def profile_prefill(params, prompt, cfg, capacity):
     from repro_torch.launch import lm_steps
 
     return _device_profile(
-        lambda: lm_steps.prefill_step(params, prompt, cfg, capacity=capacity),
-        1)
+        lambda: lm_steps.prefill_step(params, {"tokens": prompt}, cfg,
+                                      capacity=capacity), 1)
 
 
 def profile_decode(params, prompt, cfg, feed, steps=8):
@@ -1953,7 +2285,7 @@ def profile_decode(params, prompt, cfg, feed, steps=8):
 
     S = prompt.shape[1]
     shape = InputShape("lm", S + steps, prompt.shape[0], "prefill")
-    _, caches = lm_steps.prefill_step(params, prompt, cfg,
+    _, caches = lm_steps.prefill_step(params, {"tokens": prompt}, cfg,
                                       capacity=lm_steps.cache_capacity(cfg,
                                                                        shape))
     lm_steps.decode_step(params, caches, feed[:, :1], S, cfg)
@@ -1987,6 +2319,10 @@ def main():
     sys.path.insert(0, str(SRC))
     from repro_torch.configs.base import ForecasterConfig
     from repro_torch.kernels import _cuda, ops
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    require({shape[4] for shape in FLASH_SHAPES} == set(HEAD_DIMS),
+            f"phase 2b's shapes miss a head dim of the kernel: {HEAD_DIMS}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2044,12 +2380,19 @@ def main():
     # cells at the training shape
     times = time_kernels(args.seed)
     times["flash_attention"] = time_flash(args.seed)
+    flash_by_hd = {label: time_flash(args.seed, shape, label)
+                   for label, shape in FLASH_FAMILY_SHAPES.items()}
     train_times = time_training_layer(args.seed)
 
     # ---- phase 5: the dense-LM prefill and decode slice
     launches["flash_attention"] = lm_slice(args.seed)
     require(launches["flash_attention"] > 0,
             "flash_attention never launched on its path")
+
+    # ---- phase 5b: the LM families at full width, cut depth
+    family_launches = lm_families(args.seed)
+    require(sum(family_launches.values()) > 0,
+            "flash_attention never launched on the families' paths")
 
     # ---- phase 6: federated training, LSTM at ForecasterConfig() then the
     # 2-layer GRU: one launch per layer per local step for all clients
@@ -2084,7 +2427,19 @@ def main():
         """The cells' line: the layer at T=8 (the GRU's first layer) at
         the serving shape, with the second GRU layer and the T = 1 step
         beside it; the launches of each path; the layer at the training
-        shape (M=100 clients x B=64) with the client axis."""
+        shape (M=100 clients x B=64) with the client axis.  Flash's line:
+        its launches by path (phase 5's prefill, each family's of phase
+        5b) and its times at the families' head dims (phase 4b)."""
+        if n == "flash_attention":
+            return {"launches_by_path": {"lm_qwen3_14b": launches[n],
+                                         "lm_families": family_launches},
+                    "head_dims": list(HEAD_DIMS),
+                    "by_shape": {label: {
+                        "shape": dict(zip("B S Hq Hkv hd".split(), shp)),
+                        **{k: flash_by_hd[label][k] for k in (
+                            "ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by", "bound_share", "tflops")}}
+                        for label, shp in FLASH_FAMILY_SHAPES.items()}}
         if n not in wall:
             return {}
         tt = train_times[n]
@@ -2121,6 +2476,8 @@ def main():
          "replaces": replaces[n],
          "launches": (launches[n] + train_launches.get(n, 0)
                       + int8_launches.get(n, 0)
+                      + (sum(family_launches.values())
+                         if n == "flash_attention" else 0)
                       + (dp_launches + sum(lstm_more.values())
                          if n == "lstm_cell" else 0)),
          "max_abs_err": errs[n], "ms": times[n]["ms"],

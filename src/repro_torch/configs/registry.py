@@ -1,10 +1,5 @@
 """Architecture registry: --arch <id> -> ModelConfig; the counterpart of
-``src/repro/configs/registry.py``.
-
-The port holds two dense GQA decoders so far.  The other architecture ids
-of the JAX package are known but not ported: ``get_config`` raises
-``NotImplementedError`` for them, naming the ROADMAP item that ports them.
-"""
+``src/repro/configs/registry.py``, with the same ten architecture ids."""
 from __future__ import annotations
 
 import importlib
@@ -13,30 +8,22 @@ from typing import Dict
 from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
+    "codeqwen1.5-7b": "repro_torch.configs.codeqwen1_5_7b",
+    "llava-next-34b": "repro_torch.configs.llava_next_34b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
+    "qwen2-72b": "repro_torch.configs.qwen2_72b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
-}
-
-# architecture ids of the JAX package that need model code the port lacks
-NOT_PORTED = {
-    "codeqwen1.5-7b": "dense; its config is not copied yet",
-    "qwen2-72b": "dense; its config is not copied yet",
-    "llava-next-34b": "VLM frontend",
-    "musicgen-medium": "audio frontend",
-    "zamba2-7b": "Mamba2 SSM hybrid",
-    "xlstm-1.3b": "xLSTM",
-    "dbrx-132b": "mixture of experts",
-    "deepseek-v3-671b": "MLA and mixture of experts",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} ({NOT_PORTED[arch_id]}) is not ported yet: "
-            f"ROADMAP A13 ports it; ported: {list(ARCH_IDS)}")
     if arch_id not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: "
                        f"{sorted(_ARCH_MODULES)}")

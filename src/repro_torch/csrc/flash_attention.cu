@@ -11,7 +11,8 @@
 // GQA folds query head h onto KV head h / (Hq / Hkv); no K/V is replicated.
 // Key tiles wholly above the diagonal or wholly outside the window are never
 // loaded.  The layout is the JAX package's (B, S, H, hd) for q, k, v and o,
-// read and written in place: no transposes.  Any S; hd in {16, 32, 64, 128}.
+// read and written in place: no transposes.  Any S; hd in {16, 32, 64,
+// 112, 128} (112: Zamba2's shared attention block, d 3584 over 32 heads).
 // Masked scores take the TPU kernel's finite -1e30 and their weights are set
 // to 0 explicitly, so a row whose first tiles are wholly masked (as happens
 // with a window) adds no mass and never computes inf - inf.  The blocks with
@@ -48,7 +49,13 @@
 //   A row of a TMA box with the 128-byte swizzle is at most 128 bytes, so at
 //   hd=128 a tile is two 64-column boxes (the descriptor's k-offset steps
 //   into the second box at k-step 4); hd=32 and hd=16 take the 64- and
-//   32-byte swizzles.  The maps are encoded on the host at every call
+//   32-byte swizzles.  hd=112 keeps that layout at a padded width of 128:
+//   the map's innermost extent is the real 112 columns (224-byte rows, a
+//   multiple of TMA's 16 bytes), so the second 64-column box reads columns
+//   64..127 and TMA fills 112..127 with zeros; q.k^T takes the 7 k-steps
+//   that hold data, P.v runs at n128 (the zero columns of v give zero
+//   columns of acc) and the epilogue stores the 112 real columns.  The maps
+//   are encoded on the host at every call
 //   (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the library
 //   needs no -lcuda).  Not here yet: overlapping one tile's softmax with the
 //   next tile's q.k^T, ping-pong between the consumer warpgroups, a
@@ -285,16 +292,19 @@ constexpr int kConsumerRegs = 240;
 constexpr int kEmptyArrivals = 8;  // lane 0 of each consumer warp
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory of one block for head dim HD.  A tile (q: 128 rows, k or v:
-// 128 keys) comes in kBoxes TMA boxes of kBoxCols columns; a box row is
+// Shared memory of one block for head dim HD, held at kCols columns: HD, or
+// HD rounded up to a multiple of 64 past 64 (112 -> 128; TMA zero-fills the
+// columns past HD).  A tile (q: 128 rows, k or v: 128 keys) comes in kBoxes
+// TMA boxes of kBoxCols columns; a box row is
 // kRowBytes, which is also its swizzle span (32, 64 or 128 bytes), so a box
 // is 8-row swizzle atoms of 8 * kRowBytes bytes.  Every tile and box starts
 // on a 1024-byte boundary, as the 128-byte swizzle needs.
 template <int HD>
 struct Smem {
+  static constexpr int kCols = HD <= 64 ? HD : (HD + 63) / 64 * 64;
   static constexpr int kBoxCols = HD < 64 ? HD : 64;
   static constexpr int kRowBytes = 2 * kBoxCols;
-  static constexpr int kBoxes = HD / kBoxCols;
+  static constexpr int kBoxes = kCols / kBoxCols;
   static constexpr int kBoxBytes = kBlockK * kRowBytes;
   static constexpr int kTileBytes = kBoxes * kBoxBytes;
   static constexpr int kAtomBytes = 8 * kRowBytes;  // SBO of both operands
@@ -590,9 +600,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     float m[2] = {kNegInf, kNegInf};
     float l[2] = {0.0f, 0.0f};  // this thread's part of the row sums
-    float acc[HD / 2];
+    float acc[L::kCols / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < L::kCols / 2; ++i) acc[i] = 0.0f;
     float s[64];
 
     mbar_wait(q_full, 0);
@@ -607,10 +617,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t k_tile = sk + st * L::kTileBytes;
         const uint32_t v_tile = sv + st * L::kTileBytes;
 
-        // S = q . k^T over hd in k16 steps
+        // S = q . k^T over hd in k16 steps (the zero-filled columns past
+        // HD add nothing and are skipped)
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < HD / 16; ++ks) {
+        for (int ks = 0; ks < (HD + 15) / 16; ++ks) {
           const uint32_t off = (ks / L::kStepsPerBox) * L::kBoxBytes +
                                (ks % L::kStepsPerBox) * 32;
           wgmma_ss_n128<kSignA>(
@@ -661,7 +672,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           l[r] += p;
         }
 #pragma unroll
-        for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < L::kCols / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
         uint32_t pa[8][4];
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
@@ -689,7 +700,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 0) mbar_arrive(empty0 + 8 * st);
     }
 
-    // o = acc / max(l, 1e-30) in bf16; rows past S are not stored
+    // o = acc / max(l, 1e-30) in bf16; rows past S and columns past HD
+    // are not stored
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(kFull, l[r], 1);
@@ -737,7 +749,8 @@ EncodeTiled encode_tiled() {
 }
 
 // 4-D map over (hd, H, S, B), innermost first, of a contiguous (B, S, H, hd)
-// bf16 tensor; a box is kBoxCols columns of one head at 128 positions
+// bf16 tensor; a box is kBoxCols columns of one head at 128 positions, the
+// columns past hd (a box of hd=112's second half) filled with zeros
 template <int HD>
 bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B,
               int S, int H) {
@@ -824,6 +837,9 @@ int repro_flash_attention_f32(const void* q, const void* k, const void* v,
       return simt::launch<32>(qf, kf, vf, of, B, S, Hq, Hkv, window, scale, st);
     case 64:
       return simt::launch<64>(qf, kf, vf, of, B, S, Hq, Hkv, window, scale, st);
+    case 112:
+      return simt::launch<112>(qf, kf, vf, of, B, S, Hq, Hkv, window, scale,
+                               st);
     case 128:
       return simt::launch<128>(qf, kf, vf, of, B, S, Hq, Hkv, window, scale,
                                st);
@@ -847,6 +863,8 @@ int repro_flash_attention_bf16(const void* q, const void* k, const void* v,
       return sm90::launch<32>(q, k, v, o, B, S, Hq, Hkv, window, scale, st);
     case 64:
       return sm90::launch<64>(q, k, v, o, B, S, Hq, Hkv, window, scale, st);
+    case 112:
+      return sm90::launch<112>(q, k, v, o, B, S, Hq, Hkv, window, scale, st);
     case 128:
       return sm90::launch<128>(q, k, v, o, B, S, Hq, Hkv, window, scale, st);
     default:

@@ -16,8 +16,9 @@ import torch
 
 from repro_torch.kernels import _cuda, ref
 
-# head dims the kernel is built for (one template instance each)
-HEAD_DIMS = (16, 32, 64, 128)
+# head dims the kernel is built for (one template instance each); 112 is
+# Zamba2's shared attention block, held at a padded 128 in the bf16 kernel
+HEAD_DIMS = (16, 32, 64, 112, 128)
 
 
 def flash_attention(q, k, v, *, window=0, scale=None):

@@ -1,6 +1,6 @@
-"""Shared building blocks: dense init, RMS norm, RoPE, the SwiGLU MLP and
-token embeddings; the counterpart of ``src/repro/models/layers.py``
-(``layer_norm`` is not ported yet).  Also the numpy -> tensor conversion of
+"""Shared building blocks: dense init, RMS and layer norm, RoPE, the SwiGLU
+MLP and token embeddings; the counterpart of
+``src/repro/models/layers.py``.  Also the numpy -> tensor conversion of
 parameter trees made by the JAX package, ``tree_map`` / ``tree_leaves``
 over such trees, and ``seeded_generator``, the port's counterpart of a
 ``jax.random`` key split by stream.
@@ -40,6 +40,17 @@ def rms_norm(x, scale, eps=1e-5):
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * scale.float()).to(dt)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    """Layer norm over the last axis (biased variance), computed in fp32,
+    cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
 
 
 # ------------------------------------------------------------------ RoPE

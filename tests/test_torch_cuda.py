@@ -212,6 +212,8 @@ def test_forecast_on_card_matches_cpu(cuda, cell, n_layers):
     (2, 200, 4, 2, 64, 0),          # unaligned S
     (1, 333, 6, 2, 16, 50),         # unaligned, windowed, hd 16
     (1, 300, 10, 2, 128, 0),        # hd 128, GQA 5:1 as in qwen3-14b
+    (1, 300, 32, 32, 112, 0),       # hd 112, zamba2's shared block
+    (1, 200, 8, 2, 112, 64),        # hd 112, GQA 4:1, windowed
 ])
 def test_flash_matches_plain(cuda, B, S, Hq, Hkv, hd, win, dt):
     g = torch.Generator().manual_seed(S + Hq)
@@ -236,6 +238,9 @@ def test_flash_matches_plain(cuda, B, S, Hq, Hkv, hd, win, dt):
     (1, 1000, 4, 2, 64, 48),        # window inside one tile
     (1, 3000, 4, 2, 128, 1024),     # window across tiles
     (2, 300, 10, 2, 128, 0),        # GQA 5:1 at hd 128 (qwen3-14b)
+    (1, 1, 4, 4, 112, 0),           # hd 112: one row, boxes past hd and S
+    (1, 129, 32, 32, 112, 0),       # hd 112 (zamba2), a tile and one row
+    (1, 1000, 8, 2, 112, 300),      # hd 112, GQA 4:1, window across tiles
 ])
 def test_flash_bf16_tile_edges_match_plain(cuda, B, S, Hq, Hkv, hd, win):
     """The bf16 kernel (wgmma + TMA) at its tile and box edges: each element
@@ -284,6 +289,7 @@ def test_flash_refuses_bad_inputs(cuda):
         (TypeError, qkv(dt=torch.float16)),                 # wrong dtype
         (TypeError, (q, k.bfloat16(), v)),
         (ValueError, qkv(hd=48)),                           # hd out of range
+        (ValueError, qkv(hd=96)),
         (ValueError, qkv(hd=256)),
         (ValueError, qkv(Hq=3, Hkv=2)),                     # Hq % Hkv
         (ValueError, (q.transpose(1, 2).contiguous().transpose(1, 2), k, v)),
@@ -310,12 +316,43 @@ def test_lm_prefill_and_decode_kernel_route_match_plain(cuda):
                            device=cuda)
     with torch.inference_mode():
         ops.reset_launch_counts()
-        kern = lm_steps.generate(params, prompt, cfg, 4, attn_impl="kernel")
+        kern = lm_steps.generate(params, {"tokens": prompt}, cfg, 4,
+                                 attn_impl="kernel")
         assert ops.launch_counts()["flash_attention"] == cfg.n_layers
-        plain = lm_steps.generate(params, prompt, cfg, 4, attn_impl="torch",
+        plain = lm_steps.generate(params, {"tokens": prompt}, cfg, 4,
+                                  attn_impl="torch", feed=kern["tokens"])
+    for a, b in zip([kern["prefill_logits"]] + kern["logits"],
+                    [plain["prefill_logits"]] + plain["logits"]):
+        bound = 3e-2 * max(float(b.float().abs().max()), 1.0)
+        assert float((a.float() - b.float()).abs().max()) < bound
+
+
+# flash launches of one prefill of a reduced config: one per attention
+# layer; the hybrid's shared block once per group; MLA never (its q and v
+# head dims differ, as in the reference); xLSTM has no attention
+FAMILY_FLASH = {"codeqwen1.5-7b": 2, "qwen2-72b": 2, "dbrx-132b": 2,
+                "deepseek-v3-671b": 0, "zamba2-7b": 1, "xlstm-1.3b": 0,
+                "llava-next-34b": 2, "musicgen-medium": 2}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_FLASH))
+def test_lm_families_kernel_route_match_plain(cuda, arch):
+    """Each family's reduced config on the card in bf16: the flash launches
+    of FAMILY_FLASH in the prefill, none in decode, and both routes'
+    logits within the bf16 tolerance scaled by the largest |logit|."""
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(cuda).manual_seed(1)
+    params = tf.init_model(gen, cfg, dtype=torch.bfloat16)
+    batch = lm_steps.make_batch(cfg, 2, 200, gen)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        kern = lm_steps.generate(params, batch, cfg, 3, attn_impl="kernel")
+        assert ops.launch_counts()["flash_attention"] == FAMILY_FLASH[arch]
+        plain = lm_steps.generate(params, batch, cfg, 3, attn_impl="torch",
                                   feed=kern["tokens"])
     for a, b in zip([kern["prefill_logits"]] + kern["logits"],
                     [plain["prefill_logits"]] + plain["logits"]):
+        assert bool(torch.isfinite(a).all())
         bound = 3e-2 * max(float(b.float().abs().max()), 1.0)
         assert float((a.float() - b.float()).abs().max()) < bound
 

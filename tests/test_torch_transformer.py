@@ -13,7 +13,10 @@ dense configs: ``qwen3-14b.reduced()`` (qk-norm, MQA after the reduction),
 * a prefill of S-3 tokens, then 3 ``decode_step``s, at 1e-4, on both
   routes and with a sliding window;
 * the building blocks (``rms_norm``, ``apply_rope``, ``mlp``, ``embed``);
-* the configs: fields, ``reduced()``, parameter counts and input shapes.
+* the configs of all ten architecture ids: fields, ``reduced()``,
+  parameter counts and input shapes; each id resolves in the port and its
+  reduced tree builds with JAX's keys and shapes (the other families are
+  held against JAX in ``tests/test_torch_archs.py``).
 """
 import dataclasses
 
@@ -69,7 +72,7 @@ def _close(t, j, tol):
 
 
 # ------------------------------------------------------------------ configs
-@pytest.mark.parametrize("arch", ["qwen3-14b", "qwen1.5-0.5b"])
+@pytest.mark.parametrize("arch", jreg.ARCH_IDS)
 def test_dense_configs_are_copies(arch):
     j, t = jreg.get_config(arch), treg.get_config(arch)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -120,16 +123,33 @@ def test_sub_config_defaults_and_input_shapes_are_copies():
     assert set(tbase.SHAPES_BY_NAME) == set(jbase.SHAPES_BY_NAME)
 
 
-def test_unported_archs_raise_with_their_roadmap_item():
-    assert set(treg.ARCH_IDS) | set(treg.NOT_PORTED) == set(jreg.ARCH_IDS)
-    for arch in treg.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            treg.get_config(arch)
-    with pytest.raises(KeyError):
-        treg.get_config("gpt-2")
-    moe = _port_config(jreg.get_config("dbrx-132b")).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        ttf.init_model(torch.Generator().manual_seed(0), moe)
+def test_registry_holds_every_arch_of_the_jax_package():
+    assert treg.ARCH_IDS == jreg.ARCH_IDS
+    assert set(treg.all_configs()) == set(jreg.ARCH_IDS)
+
+
+@pytest.mark.parametrize("arch", jreg.ARCH_IDS)
+def test_every_arch_builds_its_reduced_tree(arch):
+    """``init_model`` of each reduced config: JAX's keys and shapes (from
+    ``jax.eval_shape``, nothing drawn on the JAX side)."""
+    jcfg = jreg.get_config(arch).reduced()
+    tcfg = treg.get_config(arch).reduced()
+    want = jax.eval_shape(lambda: jtf.init_model(jax.random.PRNGKey(0),
+                                                 jcfg))
+    mine = ttf.init_model(torch.Generator().manual_seed(0), tcfg)
+    shapes = {jax.tree_util.keystr(k): tuple(v.shape) for k, v in
+              jax.tree_util.tree_flatten_with_path(mine)[0]}
+    assert shapes == {jax.tree_util.keystr(k): tuple(v.shape) for k, v in
+                      jax.tree_util.tree_flatten_with_path(want)[0]}
+
+
+@pytest.mark.parametrize("arch", jreg.ARCH_IDS)
+def test_unknown_arch_ids_raise_key_error(arch):
+    for bad in (arch + "-x", arch.upper()):
+        with pytest.raises(KeyError):
+            treg.get_config(bad)
+        with pytest.raises(KeyError):
+            jreg.get_config(bad)
 
 
 # ------------------------------------------------------------------ layers
