@@ -30,8 +30,12 @@ hierarchical: one NCCL rank, then four gloo ranks sharing the card, held
 to the local round), runs semi-synchronous buffered rounds with stragglers
 (500 buildings, m' = 48, flush at 32) and with dropouts, the ring and
 secure aggregation (re-keyed cohorts: masked == clear bit for bit), kills
-and resumes that run from its checkpoint bit for bit, and ends with one
-JSON status line.
+and resumes that run from its checkpoint bit for bit, trains the LM
+(phase 10: qwen3-14b at full width and 4 layers through the train step of
+``launch/lm_steps.py``, Adam over 4 microbatches on the plain attention
+route with no flash launch, as the reference trains; bf16 against fp32;
+every family's step on the card against the CPU; local SGD across two
+pods of qwen1.5-0.5b), and ends with one JSON status line.
 
     python3 chip_smoke.py [--seed N]
 
@@ -44,6 +48,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2236,6 +2241,325 @@ def pacing_slice(seed):
     return launches, churn_launches
 
 
+# -------------------------------------------------------------- phase 10
+# LLM training (launch/lm_steps.py's train entry): qwen3-14b at full width,
+# bf16, n_layers 40 -> 4 (2.877e9 params; 8 layers would need ~67 GB of
+# weights, grads, fp32 accumulator and Adam moments), train_4k's global
+# batch 256 x 4096 cut to 8 x 4096 (make_lm_batch), its MICROBATCHES (4),
+# Adam, fp32 accumulator, beta 1, a constant lr; one warm step, then
+# TRAIN_STEPS timed steps on the same batch, then one profiled step.  Adam
+# moves every weight by about lr on its first steps, whatever its gradient,
+# and a d_model-wide product sums those moves coherently: at lr 3e-4 the
+# outputs move by about 3e-4 x 5120 x E|x| ~ 1.2 x their size and the loss
+# rose 12.30 -> 25.44 in 3 steps (PERF.md §6); 1e-5 moves them ~4 %
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "qwen3-14b", 4, 8, 4096
+TRAIN_STEPS, TRAIN_LR = 3, 1e-5
+# (a2) bf16 against fp32: the same model at 1 layer, one microbatch of
+# 2 x 4096, from the same (bf16) weights; the bf16 kernel tolerance
+TRAIN_BF16_TOL = 2e-2
+# (b) every family at .reduced(), fp32, 2 microbatches of 2 x 64, card
+# against the CPU: loss rtol 1e-4, grads 1e-3 of each leaf's largest
+# |value|; a bf16-accumulated leaf (deepseek's) is held at the bf16 bound
+# as well (one bf16 ulp is 3.9e-3 of a value), its 1e-3 reading reported
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 4, 64
+# (c) local SGD: qwen1.5-0.5b whole (24 layers, 4.64e8 params), bf16, two
+# pod replicas in one process, H = 4 inner steps, 2 rounds, 4 x 1024 a pod
+SGD_ARCH, SGD_PODS, SGD_H, SGD_ROUNDS = "qwen1.5-0.5b", 2, 4, 2
+SGD_BATCH, SGD_SEQ, SGD_LR = 4, 1024, 1e-4     # d_model 1024: ~8 %
+TRAIN_DEVICE = "cuda"
+
+
+def _leaf_ratios(got, ref):
+    """Each leaf's max |got - ref| over its largest |ref| (leaf paths)."""
+    import torch
+    from repro_torch.models.layers import tree_leaves
+
+    out = {}
+
+    def paths(t, pre=""):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                yield from paths(v, f"{pre}{k}/")
+        else:
+            yield pre[:-1]
+    for name, a, b in zip(paths(ref), tree_leaves(got), tree_leaves(ref)):
+        a, b = a.float().cpu(), b.float().cpu()
+        require(bool(torch.isfinite(a).all()), f"{name}: non-finite gradient")
+        out[name] = float((a - b).abs().max()
+                          / b.abs().max().clamp_min(1e-30))
+    return out
+
+
+def _free_cuda():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_main_path(seed):
+    """(a): the main path, timed and profiled."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lm_steps, roofline
+    from repro_torch.launch.mesh import PEAK_FLOPS
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    params = tf.init_model(torch.Generator(TRAIN_DEVICE).manual_seed(seed), cfg,
+                           dtype=lm_steps.PARAM_DTYPE)
+    # the tensors' elements; num_params() (6·N·D's N) leaves out the norms
+    n_params = sum(t.numel() for t in _leaves(params))
+    optimizer, step = lm_steps.build_train_step(cfg)
+    opt_state = optimizer.init(params)
+    batch = lm_steps.train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed, TRAIN_DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state_gib = torch.cuda.memory_allocated() / 2 ** 30
+    ops.reset_launch_counts()
+    losses, ms = [], []
+    for _ in range(1 + TRAIN_STEPS):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        params, opt_state, m = step(params, opt_state, batch, TRAIN_LR)
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+        losses.append(float(m["loss"]))
+    flash = ops.launch_counts()["flash_attention"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(flash == 0, f"training launched flash_attention {flash} times")
+    require(all(map(math.isfinite, losses)), f"non-finite loss {losses}")
+    require(all(b < a for a, b in zip(losses, losses[1:])),
+            f"{cfg.name}: the loss does not fall over the steps: {losses}")
+    prof = _device_profile(
+        lambda: step(params, opt_state, batch, TRAIN_LR), 1)
+    step_s = statistics.median(ms[1:]) / 1e3
+    flops = roofline.model_flops(cfg, InputShape(
+        "train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+           "num_params": cfg.num_params(), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "microbatches": lm_steps.MICROBATCHES[TRAIN_ARCH],
+           "optimizer": "adam", "accum": "float32", "lr": TRAIN_LR,
+           "losses": losses, "step_ms": ms,
+           "median_step_ms": step_s * 1e3,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+           "model_flops_per_step": flops, "peak_flops": PEAK_FLOPS,
+           "peak_share": roofline.peak_share(flops, step_s),
+           "state_gib": state_gib, "peak_gib": peak_gib,
+           "flash_launches": flash, "profile": prof}
+    del params, opt_state, batch, step, optimizer
+    _free_cuda()
+    return out
+
+
+def _train_bf16_vs_fp32(seed):
+    """(a2): one microbatch's loss and grads in bf16 against fp32, from the
+    same weights, at full width and one layer."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import lm_steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_map
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=1)
+    p16 = tf.init_model(torch.Generator(TRAIN_DEVICE).manual_seed(seed + 1), cfg,
+                        dtype=torch.bfloat16)
+    batch = lm_steps.train_batch(cfg, TRAIN_BATCH // lm_steps.MICROBATCHES[
+        TRAIN_ARCH], TRAIN_SEQ, seed + 1, TRAIN_DEVICE)
+    l16, _, g16 = tf.value_and_grad(p16, batch, cfg, dtype=torch.bfloat16)
+    p32 = tree_map(lambda t: t.float(), p16)
+    del p16
+    l32, _, g32 = tf.value_and_grad(p32, batch, cfg, dtype=torch.float32)
+    del p32
+    ratios = _leaf_ratios(g16, g32)
+    del g16, g32
+    _free_cuda()
+    loss_rel = abs(float(l16) - float(l32)) / abs(float(l32))
+    worst = max(ratios, key=ratios.get)
+    require(loss_rel <= TRAIN_BF16_TOL,
+            f"bf16 loss {float(l16)} against fp32 {float(l32)}")
+    require(ratios[worst] <= TRAIN_BF16_TOL,
+            f"bf16 grads of {worst}: {ratios[worst]:.4g} of the leaf's "
+            f"largest |value| from fp32, over {TRAIN_BF16_TOL}")
+    return {"n_layers": 1, "batch": int(batch["tokens"].shape[0]),
+            "seq": TRAIN_SEQ, "loss_bf16": float(l16),
+            "loss_fp32": float(l32), "loss_rel": loss_rel,
+            "tol": TRAIN_BF16_TOL, "worst_leaf": worst,
+            "worst_ratio": ratios[worst], "ratios": ratios}
+
+
+def _train_families(seed):
+    """(b): every family's train step at .reduced() in fp32, the card
+    against the CPU from the same params and batch."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import lm_steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_map
+
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and not torch.backends.cudnn.allow_tf32, "TF32 on in phase 10")
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        bf16_acc = arch in lm_steps.ADAFACTOR_ARCHS
+        accum = torch.bfloat16 if bf16_acc else torch.float32
+        base = tf.init_model(torch.Generator().manual_seed(seed), cfg,
+                             dtype=torch.float32)
+        runs = {}
+        for dev in ("cpu", TRAIN_DEVICE):
+            # a copy on either device: the step updates its params in place
+            params = tree_map(lambda t: t.to(dev, copy=True), base)
+            batch = lm_steps.train_batch(cfg, FAMILY_TRAIN_BATCH,
+                                         FAMILY_TRAIN_SEQ, seed, dev)
+            # the step's gradient half, then the whole step (the arch's
+            # optimizer, the update in place)
+            loss, _, grads = tf.accumulate_grads(
+                params, batch, cfg, microbatches=2, accum_dtype=accum,
+                dtype=torch.float32)
+            opt, step = lm_steps.build_train_step(cfg, microbatches=2,
+                                                  dtype=torch.float32)
+            step(params, opt.init(params), batch, 1e-3)
+            require(all(bool(torch.isfinite(t).all())
+                        for t in _leaves(params)),
+                    f"{arch} on {dev}: non-finite params after the step")
+            runs[dev] = (float(loss), grads)
+        (lc, gc), (lg, gg) = runs["cpu"], runs[TRAIN_DEVICE]
+        ratios = _leaf_ratios(gg, gc)
+        worst = max(ratios, key=ratios.get)
+        tol = TRAIN_BF16_TOL if bf16_acc else 1e-3
+        require(abs(lg - lc) <= 1e-4 * abs(lc),
+                f"{arch}: card loss {lg} against the CPU's {lc}")
+        require(ratios[worst] <= tol,
+                f"{arch}: grads of {worst} {ratios[worst]:.4g} of the "
+                f"leaf's largest |value| from the CPU's, over {tol}")
+        out[arch] = {"loss_card": lg, "loss_cpu": lc,
+                     "loss_rel": abs(lg - lc) / abs(lc),
+                     "worst_leaf": worst, "worst_ratio": ratios[worst],
+                     "tol": tol, "within_1e-3": ratios[worst] <= 1e-3,
+                     "optimizer": ("adafactor" if bf16_acc else "adam"),
+                     "accum": "bfloat16" if bf16_acc else "float32",
+                     "mtp": cfg.mtp}
+    return out
+
+
+def _train_local_sgd(seed):
+    """(c): local SGD on qwen1.5-0.5b, two pods in one process."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import local_sgd
+    from repro_torch.launch import lm_steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_leaves, tree_map
+
+    cfg = get_config(SGD_ARCH)
+    params = tf.init_model(torch.Generator(TRAIN_DEVICE).manual_seed(seed + 2),
+                           cfg, dtype=lm_steps.PARAM_DTYPE)
+    n_params = sum(t.numel() for t in _leaves(params))
+    optimizer, step = lm_steps.build_train_step(cfg)
+    params_p = lm_steps.stack_pods(params, SGD_PODS)
+    opt_p = lm_steps.stack_pods(optimizer.init(params), SGD_PODS)
+    del params
+    fed = local_sgd.LocalSGDConfig(outer_lr=1.0, outer_momentum=0.0)
+    rounds = []
+    for r in range(SGD_ROUNDS):
+        per = [[lm_steps.train_batch(
+            cfg, SGD_BATCH, SGD_SEQ,
+            seed + 100 + (r * SGD_PODS + i) * SGD_H + h, TRAIN_DEVICE)
+            for h in range(SGD_H)] for i in range(SGD_PODS)]
+        batches = {k: torch.stack([torch.stack([b[k] for b in pod])
+                                   for pod in per]) for k in per[0][0]}
+        anchor = tree_map(lambda t: t[0].clone(), params_p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = lm_steps.pod_steps(step, params_p, opt_p, batches, SGD_LR)
+        torch.cuda.synchronize()
+        inner_s = time.perf_counter() - t0
+        # outer_step at outer_lr 1, momentum 0 against the pods' mean, in
+        # the params' bf16 and on their values in fp32: mathematically
+        # equal, in floating point anchor - mean(anchor - w_i) rounds at
+        # the operands' scale, so each element is held within 4 machine
+        # epsilons of max(|anchor|, |w_i|), and the elements that differ
+        # are counted
+        checks = {}
+        for name, dt in (("bfloat16", None), ("float32", torch.float32)):
+            cast = (lambda t: t) if dt is None else (lambda t: t.to(dt))
+            pods = tree_map(cast, params_p)
+            a = tree_map(cast, anchor)
+            state = local_sgd.OuterState(a, tree_map(torch.zeros_like, a))
+            new, _ = local_sgd.outer_step(pods, state, fed)
+            mean = local_sgd.fedavg_outer(pods)
+            eps = torch.finfo(next(iter(_leaves(a))).dtype).eps
+            differ, worst = 0, 0.0
+            for x, y, an, w in zip(tree_leaves(new), tree_leaves(mean),
+                                   tree_leaves(a), tree_leaves(pods)):
+                scale = torch.maximum(an.float().abs(),
+                                      w.float().abs().amax(0))
+                gap = (x.float() - y.float()).abs()
+                differ += int((gap > 0).sum())
+                worst = max(worst, float((gap / (eps * scale).clamp_min(
+                    torch.finfo(torch.float32).tiny)).max()))
+            checks[name] = {"elements_differing": differ,
+                            "elements": n_params,
+                            "max_gap_in_eps_of_scale": worst}
+            require(worst <= 4, f"outer_step(lr 1, momentum 0) {worst:.3g} "
+                    f"epsilons from the pods' mean in {name}")
+            del pods, a, state, new, mean
+        mean = local_sgd.fedavg_outer(params_p)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        drift = float(lm_steps.sync_pods(params_p))
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t1
+        require(all(torch.equal(t[i], t[0]) for t in tree_leaves(params_p)
+                    for i in range(1, SGD_PODS)),
+                "the pod replicas differ after the sync")
+        require(all(torch.equal(t[0], m) for t, m in
+                    zip(tree_leaves(params_p), tree_leaves(mean))),
+                "the synced replicas are not the pods' mean")
+        lv = losses.float().cpu()
+        require(bool(torch.isfinite(lv).all()), f"non-finite losses {lv}")
+        rounds.append({"pod_losses": lv.tolist(), "drift": drift,
+                       "inner_s": inner_s, "sync_s": sync_s,
+                       "round_s": inner_s + sync_s,
+                       "outer_step_vs_mean": checks})
+        del anchor, mean, per
+    first, last = rounds[0]["pod_losses"], rounds[-1]["pod_losses"]
+    require(sum(p[-1] for p in last) < sum(p[0] for p in first),
+            "local SGD's loss did not fall")
+    # where an inner step's time goes: one more step of pod 0, profiled
+    p0, o0 = (tree_map(lambda t: t[0], tree) for tree in (params_p, opt_p))
+    prof = _device_profile(lambda: step(
+        p0, o0, {k: v[0, 0] for k, v in batches.items()}, SGD_LR), 1)
+    del params_p, opt_p, p0, o0, batches
+    _free_cuda()
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+            "pods": SGD_PODS, "inner_steps": SGD_H, "rounds_run": SGD_ROUNDS,
+            "batch_per_pod": SGD_BATCH, "seq": SGD_SEQ, "lr": SGD_LR,
+            "rounds": rounds, "step_profile": prof}
+
+
+def lm_train_slice(seed):
+    """LLM training on the card (phase 10).  The main path: qwen3-14b at
+    full width through ``lm_steps.build_train_step`` (Adam, 4 microbatches
+    into an fp32 accumulator, remat, the plain attention route, the update
+    in place), no flash launch; then (a2) bf16 against fp32, (b) every
+    family's step against the CPU, (c) local SGD.  Prints one JSON line a
+    part; returns the flash launches of the main path (0)."""
+    main_path = _train_main_path(seed)
+    emit({"phase": "lm_train", "part": "main", **main_path})
+    emit({"phase": "lm_train", "part": "bf16_vs_fp32",
+          **_train_bf16_vs_fp32(seed)})
+    emit({"phase": "lm_train", "part": "families",
+          "archs": _train_families(seed)})
+    emit({"phase": "lm_train", "part": "local_sgd", **_train_local_sgd(seed)})
+    return main_path["flash_launches"]
+
+
 def _device_profile(run, steps):
     """torch.profiler around ``run()`` (which does ``steps`` steps and ends
     in a synchronize): the device's own activity (kernels, copies, fills;
@@ -2419,6 +2743,10 @@ def main():
                  "semi_sync": semi_launches,
                  "semi_sync_churn": churn_launches}
 
+    # ---- phase 10: LLM training (no kernel: the plain attention route, as
+    # the reference trains)
+    train_flash = lm_train_slice(args.seed)
+
     replaces = {"lstm_cell": "src/repro/kernels/lstm_cell.py:24",
                 "gru_cell": "src/repro/kernels/gru_cell.py:17",
                 "flash_attention": "src/repro/kernels/flash_attention.py:28"}
@@ -2432,7 +2760,8 @@ def main():
         5b) and its times at the families' head dims (phase 4b)."""
         if n == "flash_attention":
             return {"launches_by_path": {"lm_qwen3_14b": launches[n],
-                                         "lm_families": family_launches},
+                                         "lm_families": family_launches,
+                                         "lm_train": train_flash},
                     "head_dims": list(HEAD_DIMS),
                     "by_shape": {label: {
                         "shape": dict(zip("B S Hq Hkv hd".split(), shp)),

@@ -22,15 +22,19 @@ Full-sequence GQA attention goes through ``attn_impl``: ``"kernel"`` (the
 default) is the hand-written CUDA flash-attention kernel
 (``kernels/flash_attention.py``; its plain version on the CPU) for any S;
 ``"torch"`` is the plain path of the JAX package, q-chunked at
-``S >= CHUNK_THRESHOLD``.  A shape the kernel cannot take raises; it never
-falls back to the plain path.  MLA's q and v head dims differ, so the JAX
-package never sends it to its kernel; ``mla_forward`` takes the plain path
-on either route.  Sharding constraints of the JAX package have no
-counterpart on one card and are dropped.
+``S >= CHUNK_THRESHOLD``, and the route of training: the kernel is
+forward only (so is the reference's, which trains on its plain path), and
+on a CUDA tensor that autograd would record it raises.  A shape the
+kernel cannot take raises; it never falls back to the plain path.  MLA's
+q and v head dims differ, so the JAX package never sends it to its
+kernel; ``mla_forward`` takes the plain path on either route.  Sharding
+constraints of the JAX package have no counterpart on one card and are
+dropped.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels import ops
@@ -127,7 +131,11 @@ def _causal_attend(q, k, v, scale, window: int, dtype,
 
 def _causal_attend_plain(q, k, v, scale, window: int, dtype):
     """The plain path: scores materialised, q-chunked at
-    ``S >= CHUNK_THRESHOLD`` to bound them at (B, Q_CHUNK, H, S)."""
+    ``S >= CHUNK_THRESHOLD`` to bound them at (B, Q_CHUNK, H, S).  With
+    grad enabled each chunk runs under ``torch.utils.checkpoint``, as the
+    reference's ``jax.checkpoint`` block: the backward recomputes a
+    chunk's fp32 scores instead of keeping one copy per chunk (5.4 GB a
+    layer at 2 x 4096 x 40 heads)."""
     B, S = q.shape[:2]
 
     def block(qb, off):
@@ -144,7 +152,11 @@ def _causal_attend_plain(q, k, v, scale, window: int, dtype):
 
     if S < CHUNK_THRESHOLD or S % Q_CHUNK:
         return block(q, 0)
-    return torch.cat([block(q[:, off:off + Q_CHUNK], off)
+    def run(qb, off):
+        if torch.is_grad_enabled():
+            return checkpoint(block, qb, off, use_reentrant=False)
+        return block(qb, off)
+    return torch.cat([run(q[:, off:off + Q_CHUNK], off)
                       for off in range(0, S, Q_CHUNK)], dim=1)
 
 

@@ -1,11 +1,14 @@
 """The unified decoder over every architecture family: the counterpart of
 ``src/repro/models/transformer.py``.
 
-One parameter tree + three entry points:
+One parameter tree + four entry points:
 
-  * ``forward``      full sequence (prefill); optionally fills the caches
-  * ``decode_step``  one token against the per-layer caches and states
-  * ``init_cache``   the stacked per-layer caches (KV, MLA latent, SSM,
+  * ``forward``          full sequence (train / prefill); optionally fills
+    the caches, optionally stops before the LM head (``head=False``)
+  * ``make_train_step``  loss, gradients (microbatch accumulation) and the
+    optimizer update: ``train_step(params, opt_state, batch, lr)``
+  * ``decode_step``      one token against the per-layer caches and states
+  * ``init_cache``       the stacked per-layer caches (KV, MLA latent, SSM,
     xLSTM)
 
 The tree has the JAX package's keys and layouts, so a JAX-made tree crosses
@@ -16,7 +19,8 @@ groups:
   dense / vlm / audio : ``blocks``, one stack of [attention + MLP] blocks
   moe                 : ``dense_blocks`` (the first ``dense_layers``) and
                         ``moe_blocks``; ``mtp_proj`` / ``mtp_block`` /
-                        ``mtp_ln`` when ``cfg.mtp`` (made, unused here)
+                        ``mtp_ln`` when ``cfg.mtp`` (DeepSeek's
+                        multi-token prediction, a loss term in training)
   hybrid (zamba2)     : ``mamba_groups`` (groups x attn_every) with ONE
                         ``shared_attn`` block applied after each group, and
                         ``mamba_tail`` for the remainder
@@ -29,8 +33,12 @@ JAX package scans the stacks; here Python loops walk views of them.
 Caches are stacked the same way and filled in place: the KV and latent
 caches slot by slot, the SSM and xLSTM states by copying each layer's new
 state into its slice.  Full-sequence attention takes ``attn_impl`` (see
-:mod:`repro_torch.models.attention`); ``remat`` is accepted and ignored,
-since there is no backward pass here.
+:mod:`repro_torch.models.attention`); training takes the plain route
+(``"torch"``), as the reference does.  ``remat`` runs each block under
+``torch.utils.checkpoint`` where autograd records the pass, at the
+reference's ``jax.checkpoint`` granularity: a dense or MoE block, each
+Mamba2 block, each call of the shared attention block, each mLSTM and
+sLSTM block.
 """
 from __future__ import annotations
 
@@ -38,8 +46,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import optim
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.losses import chunked_weighted_ce
 from repro_torch.models import attention as attn
 from repro_torch.models import frontends
 from repro_torch.models import moe as moe_mod
@@ -47,7 +58,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (dense_init, embed, init_embedding,
                                        init_mlp, mlp, rms_norm,
-                                       tree_from_numpy)
+                                       tree_from_numpy, tree_leaves, tree_map)
 
 
 def _map(fn, tree):
@@ -288,29 +299,43 @@ def _embed_input(params, batch, cfg: ModelConfig, dtype):
     return x, None
 
 
+def _head_weights(params, cfg: ModelConfig):
+    return (params["embed_tokens"].T if cfg.tie_embeddings
+            else params["lm_head"])
+
+
 def _lm_logits(params, h, cfg: ModelConfig):
     if cfg.arch_type == "audio":
         return frontends.codebook_logits(params, h)      # (B,K,S,V)
-    w = (params["embed_tokens"].T if cfg.tie_embeddings
-         else params["lm_head"]).to(h.dtype)
-    return torch.matmul(h, w)
+    return torch.matmul(h, _head_weights(params, cfg).to(h.dtype))
 
 
 # ===================================================================== forward
 def forward(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16,
             window: Optional[int] = None, caches=None, remat: bool = True,
-            attn_impl: str = "kernel"):
+            attn_impl: str = "kernel", head: bool = True):
     """Full-sequence pass.  Returns (logits, aux_loss, (caches, h,
     media_mask)); ``aux_loss`` is the MoE load-balance loss summed over
-    the layers (0 elsewhere), logits (B, S, V) (audio: (B, K, S, V)).
+    the layers (0 elsewhere), logits (B, S, V) (audio: (B, K, S, V)), or
+    None with ``head=False``: the train step's chunked CE computes its own
+    logits from ``h``, and eager torch would compute the unused full head
+    (the reference leaves it to XLA's dead-code elimination).
 
     ``caches`` (optional) are ``init_cache`` trees, filled in place
     (prefill mode).  ``window`` overrides ``cfg.sliding_window``.
+    ``remat`` checkpoints each block when autograd records the pass and no
+    cache is being filled.
     """
     window = cfg.sliding_window if window is None else window
     x, media_mask = _embed_input(params, batch, cfg, dtype)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     fill = caches is not None
+    ck = remat and torch.is_grad_enabled() and not fill
+
+    def run(fn, *args):
+        if ck:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
 
     def cache_of(tree, l):
         return None if tree is None else _layer(tree, l)
@@ -318,11 +343,27 @@ def forward(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16,
     def part(key):
         return caches[key] if fill else None
 
+    def dense(x, p, c):
+        return _dense_block_fwd(p, x, cfg, cache=c, window=window,
+                                attn_impl=attn_impl)[0]
+
+    def moe(x, p, c):
+        x, _, a = _moe_block_fwd(p, x, cfg, cache=c, window=window,
+                                 attn_impl=attn_impl)
+        return x, a
+
+    def residual(fn, p, x, dst):
+        """A Mamba2 / mLSTM / sLSTM block; its final state is copied into
+        the cache slice ``dst`` when filling."""
+        if dst is None:
+            return run(lambda x, p: _residual_fwd(fn, p, x, cfg)[0], x, p)
+        x, st = _residual_fwd(fn, p, x, cfg)
+        _assign(dst, st)
+        return x
+
     def dense_stack(blocks, cs, x):
         for l in range(blocks["ln1"].shape[0]):
-            x, _ = _dense_block_fwd(_layer(blocks, l), x, cfg,
-                                    cache=cache_of(cs, l), window=window,
-                                    attn_impl=attn_impl)
+            x = run(dense, x, _layer(blocks, l), cache_of(cs, l))
         return x
 
     if cfg.arch_type in ("dense", "vlm", "audio"):
@@ -333,48 +374,169 @@ def forward(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16,
             x = dense_stack(params["dense_blocks"], part("dense"), x)
         blocks = params["moe_blocks"]
         for l in range(blocks["ln1"].shape[0]):
-            x, _, a = _moe_block_fwd(_layer(blocks, l), x, cfg,
-                                     cache=cache_of(part("moe"), l),
-                                     window=window, attn_impl=attn_impl)
+            x, a = run(moe, x, _layer(blocks, l), cache_of(part("moe"), l))
             aux_total = aux_total + a
 
     elif cfg.arch_type == "hybrid":
         g, tail = _zamba_split(cfg)
         for gi in range(g):
             pg = _layer(params["mamba_groups"], gi)
+            sg = cache_of(part("groups"), gi)
             for j in range(cfg.attn_every):
-                x, st = _residual_fwd(ssm_mod.ssm_forward, _layer(pg, j), x,
-                                      cfg)
-                if fill:
-                    _assign(_layer(_layer(caches["groups"], gi), j), st)
-            x, _ = _dense_block_fwd(params["shared_attn"], x, cfg,
-                                    cache=cache_of(part("shared"), gi),
-                                    window=window, attn_impl=attn_impl)
+                x = residual(ssm_mod.ssm_forward, _layer(pg, j), x,
+                             cache_of(sg, j))
+            x = run(dense, x, params["shared_attn"],
+                    cache_of(part("shared"), gi))
         for j in range(tail):
-            x, st = _residual_fwd(ssm_mod.ssm_forward,
-                                  _layer(params["mamba_tail"], j), x, cfg)
-            if fill:
-                _assign(_layer(caches["tail"], j), st)
+            x = residual(ssm_mod.ssm_forward,
+                         _layer(params["mamba_tail"], j), x,
+                         cache_of(part("tail"), j))
 
     elif cfg.arch_type == "ssm":                          # xlstm
         g, per = _xlstm_groups(cfg)
+        m_caches, s_caches = caches if fill else (None, None)
         for gi in range(g):
             pm = _layer(params["mlstm_groups"], gi)
+            sm = cache_of(m_caches, gi)
             for j in range(per):
-                x, st = _residual_fwd(xlstm_mod.mlstm_forward, _layer(pm, j),
-                                      x, cfg)
-                if fill:
-                    _assign(_layer(_layer(caches[0], gi), j), st)
-            x, st = _residual_fwd(xlstm_mod.slstm_forward,
-                                  _layer(params["slstm_blocks"], gi), x, cfg)
-            if fill:
-                _assign(_layer(caches[1], gi), st)
+                x = residual(xlstm_mod.mlstm_forward, _layer(pm, j), x,
+                             cache_of(sm, j))
+            x = residual(xlstm_mod.slstm_forward,
+                         _layer(params["slstm_blocks"], gi), x,
+                         cache_of(s_caches, gi))
     else:
         raise ValueError(cfg.arch_type)
 
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _lm_logits(params, h, cfg)
+    logits = _lm_logits(params, h, cfg) if head else None
     return logits, aux_total, (caches, h, media_mask)
+
+
+# ===================================================================== train
+def loss_fn(params, batch, cfg: ModelConfig, *, beta: float = 1.0,
+            dtype=torch.bfloat16, remat: bool = True,
+            attn_impl: str = "torch"):
+    """(loss, {"ce", "aux"}) of one batch: the position-weighted CE
+    (``beta``; 1 is plain CE) from ``h`` through the chunked head (audio:
+    the mean over codebooks of each codebook head's CE; VLM: text
+    positions only), plus the MoE aux loss, plus 0.3 x the MTP loss where
+    ``cfg.mtp``.  Batch: ``tokens`` / ``labels`` (B, S) (audio (B, K, S);
+    VLM tokens (B, S - n_media) and ``media``)."""
+    _, aux, (_, h, media_mask) = forward(params, batch, cfg, dtype=dtype,
+                                         remat=remat, attn_impl=attn_impl,
+                                         head=False)
+    if cfg.arch_type == "audio":
+        K = cfg.frontend.n_codebooks
+        lbl = batch["labels"]                            # (B,K,S)
+        ce = sum(chunked_weighted_ce(h, params["cb_heads"][:, k, :],
+                                     lbl[:, k], beta)
+                 for k in range(K)) / K
+    else:
+        ce = chunked_weighted_ce(h, _head_weights(params, cfg),
+                                 batch["labels"], beta, media_mask)
+    loss = ce + aux
+    if cfg.mtp:
+        loss = loss + 0.3 * _mtp_loss(params, h, batch, cfg, beta,
+                                      attn_impl=attn_impl)
+    return loss, {"ce": ce, "aux": aux}
+
+
+def value_and_grad(params, batch, cfg: ModelConfig, **kw):
+    """(loss, parts, grads) of :func:`loss_fn` (keyword arguments passed
+    on) with respect to every leaf of ``params``: grads is a tree like
+    ``params``, in each leaf's dtype, zeros where a leaf is unused.  The
+    leaves themselves are left as they are (grads flow through detached
+    aliases of them)."""
+    leaves = tree_leaves(params)
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    it = iter(live)
+    tree = tree_map(lambda _: next(it), params)
+    with torch.enable_grad():
+        loss, parts = loss_fn(tree, batch, cfg, **kw)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    it = iter([torch.zeros_like(t) if g is None else g
+               for g, t in zip(grads, leaves)])
+    return (loss.detach(), {k: v.detach() for k, v in parts.items()},
+            tree_map(lambda _: next(it), params))
+
+
+def accumulate_grads(params, batch, cfg: ModelConfig, *,
+                     microbatches: int = 1, accum_dtype=torch.float32, **kw):
+    """:func:`value_and_grad` over ``microbatches`` slices of the batch's
+    leading axis: the gradients summed in ``accum_dtype`` (in place, one
+    microbatch's grads beside the sum), then divided by the count; loss
+    and parts averaged.  One microbatch is :func:`value_and_grad` itself,
+    grads in the params' dtype, as the reference skips its scan."""
+    if microbatches == 1:
+        return value_and_grad(params, batch, cfg, **kw)
+    n = next(iter(batch.values())).shape[0]
+    if n % microbatches:
+        raise ValueError(f"batch of {n} does not split into {microbatches} "
+                         "microbatches")
+    bs = n // microbatches
+    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
+                                          device=p.device), params)
+    losses, partss = [], []
+    for i in range(microbatches):
+        mb = {k: v[i * bs:(i + 1) * bs] for k, v in batch.items()}
+        loss, parts, g = value_and_grad(params, mb, cfg, **kw)
+        tree_map(lambda a, b: a.add_(b.to(accum_dtype)), gsum, g)
+        del g
+        losses.append(loss)
+        partss.append(parts)
+    tree_map(lambda a: a.div_(microbatches), gsum)
+    parts = {k: torch.mean(torch.stack([p[k] for p in partss]))
+             for k in partss[0]}
+    return torch.mean(torch.stack(losses)), parts, gsum
+
+
+def make_train_step(cfg: ModelConfig, optimizer, *, beta: float = 1.0,
+                    dtype=torch.bfloat16, remat: bool = True,
+                    microbatches: int = 1, accum_dtype=torch.float32,
+                    attn_impl: str = "torch"):
+    """Returns train_step(params, opt_state, batch, lr) -> (params,
+    opt_state, metrics).  ``beta`` is the EW loss exponent (paper's EW-MSE
+    transferred to position-weighted CE; beta=1 == plain CE).
+
+    ``microbatches`` > 1 accumulates gradients over slices of the batch's
+    leading axis (peak activation memory scales with the microbatch) into
+    an ``accum_dtype`` sum: fp32 by default, bf16 for the 671B fit.  The
+    update is the reference's ``p + u`` applied leaf by leaf into the given
+    params and state tensors (:func:`repro_torch.optim.update_in_place`):
+    at full width there is no room for a second copy of either, so the
+    step returns the same params, updated.
+    """
+    def train_step(params, opt_state, batch, lr):
+        loss, parts, grads = accumulate_grads(
+            params, batch, cfg, microbatches=microbatches,
+            accum_dtype=accum_dtype, beta=beta, dtype=dtype, remat=remat,
+            attn_impl=attn_impl)
+        opt_state = optim.update_in_place(optimizer, grads, opt_state, params,
+                                          lr)
+        return params, opt_state, {"loss": loss, **parts}
+
+    return train_step
+
+
+def _mtp_loss(params, h, batch, cfg: ModelConfig, beta: float, *,
+              attn_impl: str = "torch"):
+    """DeepSeek-V3 multi-token prediction: one extra block predicts t+2.
+
+    h'_t = W_proj [RMSNorm(h_t); RMSNorm(Emb(label_t))] -> block -> head.
+    """
+    lbl = batch["labels"]
+    emb = embed(params["embed_tokens"], lbl, h.dtype)     # token t+1 stream
+    cat = torch.cat([rms_norm(h, params["mtp_ln"], cfg.norm_eps),
+                     rms_norm(emb, params["mtp_ln"], cfg.norm_eps)], dim=-1)
+    x = torch.matmul(cat, params["mtp_proj"].to(h.dtype))
+    x, _ = _dense_block_fwd(params["mtp_block"], x, cfg, attn_impl=attn_impl)
+    h2 = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    # labels for t+2: shift labels left by one; mask the last position
+    lbl2 = torch.cat([lbl[:, 1:], lbl[:, -1:]], dim=1)
+    mask = torch.cat([torch.ones_like(lbl[:, 1:], dtype=torch.bool),
+                      torch.zeros_like(lbl[:, -1:], dtype=torch.bool)], dim=1)
+    return chunked_weighted_ce(h2, _head_weights(params, cfg), lbl2, beta,
+                               mask)
 
 
 # ===================================================================== decode

@@ -1,7 +1,8 @@
 """Rank programs for the port's multi-process tests
-(``tests/test_torch_aggregation.py``): each runs in a process spawned by
-:func:`spawn`, joins a gloo process group through a file in the test's
-temporary directory, runs its part of a round engine on the CPU and writes
+(``tests/test_torch_aggregation.py``, ``tests/test_torch_local_sgd.py``):
+each runs in a process spawned by :func:`spawn`, joins a gloo process
+group through a file in the test's temporary directory, runs its part of
+a round engine (or a cross-pod sync) on the CPU and writes
 what it computed to ``<out_dir>/rank<r>.npz`` (``repro_torch.checkpoint``
 format).  This module imports no JAX, so a spawned rank starts quickly.
 """
@@ -112,5 +113,29 @@ def semi_sync_rounds(rank, world, init, out_dir, fcfg_kw, flcfg_kw, rounds,
                         {"params": p, "loss": np.asarray(hist),
                          "async": e.async_state.to_tree()},
                         metadata={"n_pending": len(e.async_state.pending)})
+    finally:
+        dist.destroy_process_group()
+
+
+def outer_sync(rank, world, init, out_dir, anchor, locals_, cfg_kw):
+    """``core/local_sgd.make_sharded_outer`` over the ranks, one pod a
+    rank: from ``init_outer_state(anchor)``, one sync per entry of
+    ``locals_`` (a list over syncs of each rank's pod params, numpy
+    trees), this rank's ``locals_[s][rank]``; writes each sync's anchor
+    and momentum."""
+    from repro_torch.core import local_sgd
+    from repro_torch.models.layers import tree_from_numpy
+
+    _join(rank, world, init)
+    try:
+        sync = local_sgd.make_sharded_outer(
+            dist.group.WORLD, local_sgd.LocalSGDConfig(**cfg_kw))
+        state = local_sgd.init_outer_state(tree_from_numpy(anchor))
+        out = {}
+        for s, per_rank in enumerate(locals_):
+            new_anchor, state = sync(tree_from_numpy(per_rank[rank]), state)
+            out[f"sync{s}"] = {"anchor": new_anchor,
+                               "momentum": state.momentum}
+        checkpoint.save(os.path.join(out_dir, f"rank{rank}.npz"), out)
     finally:
         dist.destroy_process_group()

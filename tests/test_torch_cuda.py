@@ -12,7 +12,8 @@ torch = pytest.importorskip("torch")
 
 import dataclasses  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch import optim  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.configs.base import ForecasterConfig  # noqa: E402
 from repro_torch.core import losses  # noqa: E402
 from repro_torch.core.client import local_update  # noqa: E402
@@ -20,7 +21,7 @@ from repro_torch.kernels import lstm_cell, ops, ref  # noqa: E402
 from repro_torch.launch import lm_steps  # noqa: E402
 from repro_torch.models import forecaster  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
-from repro_torch.models.layers import tree_leaves  # noqa: E402
+from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # a layer past one step in bf16: the plain cell rounds its two products and
@@ -636,3 +637,81 @@ def test_one_nccl_rank_mesh_round_equals_local(cuda, tmp_path, extra):
                 assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------------- LM training
+def _train_inputs(arch, dev, seed=0):
+    cfg = get_config(arch).reduced()
+    params = tf.init_model(torch.Generator().manual_seed(seed), cfg,
+                           dtype=torch.float32)
+    return (cfg, tree_map(lambda t: t.to(dev), params),
+            lm_steps.train_batch(cfg, 4, 64, seed, dev))
+
+
+def _grads_close(a, b, tol):
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x, y = x.float().cpu(), y.float().cpu()
+        assert torch.isfinite(x).all()
+        assert (x - y).abs().max() <= tol * y.abs().max()
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_reduced_train_step_on_card_matches_the_cpu(cuda, arch):
+    """Two microbatches in fp32 on the plain attention route: loss rtol
+    1e-4, grads within 1e-3 of each leaf's largest |value|."""
+    out = {}
+    for dev in ("cpu", cuda):
+        cfg, params, batch = _train_inputs(arch, dev)
+        out[str(dev)] = tf.accumulate_grads(params, batch, cfg,
+                                            microbatches=2,
+                                            dtype=torch.float32)
+    (lc, _, gc), (lg, _, gg) = out["cpu"], out[str(cuda)]
+    assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
+    _grads_close(gg, gc, 1e-3)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_kernel_attention_under_autograd_raises_on_card(cuda, remat):
+    """The flash kernel is forward only: a train step on the kernel route
+    fails loudly instead of dropping the attention's gradients."""
+    cfg, params, batch = _train_inputs("qwen3-14b", cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="forward only"):
+        tf.value_and_grad(params, batch, cfg, dtype=torch.float32,
+                          remat=remat, attn_impl="kernel")
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "deepseek-v3-671b",
+                                  "zamba2-7b", "xlstm-1.3b"])
+def test_remat_gives_the_same_loss_and_grads_on_card(cuda, arch):
+    cfg, params, batch = _train_inputs(arch, cuda)
+    l1, _, g1 = tf.value_and_grad(params, batch, cfg, dtype=torch.float32,
+                                  remat=True)
+    l0, _, g0 = tf.value_and_grad(params, batch, cfg, dtype=torch.float32,
+                                  remat=False)
+    assert abs(float(l1) - float(l0)) <= TOL[torch.float32] * abs(float(l0))
+    _grads_close(g1, g0, TOL[torch.float32])
+
+
+@pytest.mark.parametrize("name", ["adam", "adafactor", "sgd"])
+def test_in_place_optimizer_update_equals_the_functional_one_on_card(
+        cuda, name):
+    opt = {"adam": optim.adam(), "adafactor": optim.adafactor(),
+           "sgd": optim.sgd(momentum=0.9, nesterov=True)}[name]
+    g = torch.Generator().manual_seed(5)
+
+    def tree():
+        return {"e": torch.randn(64, 32, generator=g),
+                "s": {"w": torch.randn(3, 16, 8, generator=g),
+                      "n": torch.randn(16, generator=g)}}
+    p_fun = tree_map(lambda t: t.to(cuda, torch.bfloat16), tree())
+    p_in = tree_map(torch.clone, p_fun)
+    s_fun, s_in = opt.init(p_fun), opt.init(p_in)
+    for _ in range(3):
+        grads = tree_map(lambda t: t.to(cuda, torch.bfloat16), tree())
+        u, s_fun = opt.update(grads, s_fun, p_fun, 1e-2)
+        p_fun = tree_map(lambda p, d: p + d.to(p.dtype), p_fun, u)
+        s_in = optim.update_in_place(opt, grads, s_in, p_in, 1e-2)
+    for a, b in zip(tree_leaves(p_in), tree_leaves(p_fun)):
+        assert torch.equal(a, b)
