@@ -35,7 +35,16 @@ and resumes that run from its checkpoint bit for bit, trains the LM
 ``launch/lm_steps.py``, Adam over 4 microbatches on the plain attention
 route with no flash launch, as the reference trains; bf16 against fp32;
 every family's step on the card against the CPU; local SGD across two
-pods of qwen1.5-0.5b), and ends with one JSON status line.
+pods of qwen1.5-0.5b), runs the paper's examples
+(``examples/torch_*.py``: quickstart, the end-to-end example as it is and
+under semi-sync with the privacy stack, the serving demo) on the layer
+kernel (phase 11), holds the dry run's memory model against the card on
+a 1 x 1 mesh (phase 12a: phase 10's train step and phase 5's prefill),
+dry-runs qwen3-14b at every shape on the fake 16 x 16 production mesh and
+deepseek-v3-671b's train step (cut in depth) on 2 x 16 x 16 (12b, host
+processes started after phase 10), runs phase 5's prefill with DTensor
+params on one NCCL rank through the flash kernel, bit-equal to phase 5
+(12c), and ends with one JSON status line.
 
     python3 chip_smoke.py [--seed N]
 
@@ -982,9 +991,10 @@ def lm_slice(seed):
           "over_tol_by_step": worst, "prefill_profile": prefill_profile,
           "decode_profile": decode_profile,
           "tokens": kern["tokens"][0].tolist()})
+    prefill_logits = kern["prefill_logits"].clone()
     del params, kern, plain, warm
     torch.cuda.empty_cache()
-    return counts["flash_attention"]
+    return counts["flash_attention"], prefill_logits
 
 
 # -------------------------------------------------------------- phase 5b
@@ -2350,6 +2360,7 @@ def _train_main_path(seed):
            "model_flops_per_step": flops, "peak_flops": PEAK_FLOPS,
            "peak_share": roofline.peak_share(flops, step_s),
            "state_gib": state_gib, "peak_gib": peak_gib,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
            "flash_launches": flash, "profile": prof}
     del params, opt_state, batch, step, optimizer
     _free_cuda()
@@ -2557,7 +2568,7 @@ def lm_train_slice(seed):
     emit({"phase": "lm_train", "part": "families",
           "archs": _train_families(seed)})
     emit({"phase": "lm_train", "part": "local_sgd", **_train_local_sgd(seed)})
-    return main_path["flash_launches"]
+    return main_path["flash_launches"], main_path["peak_bytes"]
 
 
 def _device_profile(run, steps):
@@ -2628,6 +2639,357 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# -------------------------------------------------------------- phase 11
+# examples/torch_quickstart.py at its own settings (12 buildings x 60 days,
+# 20 rounds, LSTM H=32); the e2e example at the verify recipe's small
+# settings, as it is and under semi-sync with the privacy stack; the
+# serving demo at its defaults
+E2E_ARGS = ["--clients", "8", "--rounds", "6", "--heldout", "6",
+            "--days", "40"]
+E2E_PRIVATE = ["--mode", "semi_sync", "--dp-clip", "1", "--dp-noise", "0.5",
+               "--quantize", "8", "--secure-agg"]
+EXAMPLE_RUNS = [("quickstart", "torch_quickstart", []),
+                ("e2e", "torch_fl_forecasting_e2e", E2E_ARGS),
+                ("e2e_semi_sync_private", "torch_fl_forecasting_e2e",
+                 E2E_ARGS + E2E_PRIVATE),
+                ("serve", "torch_serve_forecaster", [])]
+
+
+def _example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_slice(seed):
+    """Phase 11: each ``examples/torch_*.py`` through its ``main(argv)`` on
+    the card, the launch counts set to 0 just before it and read just
+    after: every local step's forward and every evaluation batch is one
+    launch of the LSTM layer kernel a layer.  Losses and metrics must be
+    finite (the last finite loss of each cluster where cohort-atomic
+    pacing records nan for a flush that completes no cohort).  Prints
+    each one's wall and held-out accuracy (the quickstart's: its unseen
+    building's test windows; the serving demo forecasts past the end of
+    its data, so it has none).  Returns each one's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ForecasterConfig
+    from repro_torch.core import fedavg
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+
+    launches, report = {}, {}
+    for name, module, argv in EXAMPLE_RUNS:
+        mod = _example(module)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        launches[name] = counts["lstm_cell"]
+        require(counts["gru_cell"] == 0 and counts["flash_attention"] == 0,
+                f"{name}: launch counts {counts}")
+        if name == "quickstart":
+            require(bool(np.isfinite(res["loss_history"]).all())
+                    and bool(np.isfinite(res["forecast_kwh"]).all()),
+                    f"{name}: non-finite loss or forecast")
+            unseen = synthetic.generate_buildings("CA", [99_999], days=60)
+            acc = fedavg.evaluate_unseen_clients(
+                res["params"], unseen, ForecasterConfig(cell="lstm",
+                                                        hidden_dim=32),
+                device="cuda")
+            losses = [float(res["loss_history"][-1])]
+        elif name.startswith("e2e"):
+            results = list(res["clustered"].values()) + [res["global"]]
+            losses = [fedavg.final_loss(r) for r in results]
+            if name == "e2e":
+                require(all(bool(np.isfinite(r.loss_history).all())
+                            for r in results), f"{name}: non-finite loss")
+            acc = res["global_eval"]
+            for m in (acc, *res["unseen"].values()):
+                require(all(math.isfinite(m[k]) for k in ("accuracy",
+                                                          "rmse")),
+                        f"{name}: non-finite metric {m}")
+        else:
+            served = np.stack([t.result for t in res])
+            require(len(res) == 256 and bool(np.isfinite(served).all()),
+                    f"{name}: {len(res)} tickets or non-finite forecasts")
+            acc, losses = None, []
+        require(all(map(math.isfinite, losses)), f"{name}: loss {losses}")
+        report[name] = {"argv": argv, "wall_s": wall,
+                        "lstm_cell_launches": counts["lstm_cell"],
+                        "final_losses": losses,
+                        "held_out_accuracy": (None if acc is None
+                                              else acc["accuracy"]),
+                        "held_out_mape": (None if acc is None
+                                          else acc["mape"])}
+        del res
+        _free_cuda()
+    emit({"phase": "examples", "runs": report})
+    return launches
+
+
+# -------------------------------------------------------------- phase 12
+# 12a: steps that one card runs, predicted by the dry run on a 1 x 1 mesh
+# and measured: phase 10a's train step, and phase 5's prefill on the plain
+# attention route (the dry run's route: a kernel takes device pointers,
+# which fake tensors have not).  The prediction must land within
+# DRYRUN_MEM_TOL of the measured peak (PERF.md says why this bound)
+DRYRUN_MEM_TOL = 0.05
+DRYRUN_DIR = ROOT / "build" / "dryrun_smoke"
+# 12b: the production mesh, 16 x 16 for qwen3-14b at every shape, and
+# deepseek-v3-671b's train_4k (the reference's Adafactor case) on
+# 2 x 16 x 16, its depth cut 61 -> 5 (its 3 dense layers and 2 MoE): at
+# full depth its 16 microbatches take the eager dry run past the script's
+# time (the full grid runs through the CLI, PERF.md); at 8 microbatches,
+# so that a microbatch's 32 sequences fill the 32-way ("pod", "data")
+# batch split (at 16, DTensor's view of the flattened tokens goes wrong:
+# ROADMAP queue C); every run a process of its own, read within the limit
+PRODUCTION_RUNS = [("qwen3-14b", shape, []) for shape in
+                   ("train_4k", "prefill_32k", "decode_32k", "long_500k")] \
+    + [("deepseek-v3-671b", "train_4k",
+        ["--multi-pod", "--layers", "5", "--microbatches", "8"])]
+PRODUCTION_LIMIT_S = 780
+
+
+def _dryrun_cmd(arch, shape, extra, out):
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            arch, "--shape", shape, "--out", str(out), *extra]
+
+
+def _dryrun_env():
+    import os
+    return dict(os.environ, PYTHONPATH=str(SRC))
+
+
+def _record(out, arch, shape, stdout):
+    """The record a dry run wrote (its line names the mesh)."""
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("[dryrun]")]
+    require(lines and ": OK" in lines[-1],
+            f"dry run {arch} x {shape}: {stdout[-2000:]}")
+    mesh = lines[-1].split(" × ")[2].split(":")[0]
+    path = max(Path(out).glob(f"{arch}__{shape}__{mesh}*.json"),
+               key=lambda p: p.stat().st_mtime)
+    return json.loads(path.read_text())
+
+
+def _predicted(rec):
+    m = rec["memory"]
+    return m["argument_bytes"] + m["temp_bytes"] + m["output_bytes"]
+
+
+def dryrun_vs_card(seed, train_peak):
+    """Phase 12a."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import lm_steps, roofline
+    from repro_torch.models import transformer as tf
+
+    out = DRYRUN_DIR / "one_card"
+    runs = {"train": ("train_4k", ["--layers", str(TRAIN_LAYERS), "--batch",
+                                   str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                                   "--microbatches", str(
+                                       lm_steps.MICROBATCHES[TRAIN_ARCH])]),
+            "prefill": ("prefill_32k", ["--layers", str(LM_LAYERS),
+                                        "--batch", str(LM_BATCH),
+                                        "--seq", str(LM_PROMPT)])}
+    recs, walls = {}, {}
+    for part, (shape, extra) in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(_dryrun_cmd(TRAIN_ARCH, shape,
+                                          ["--mesh", "1x1", *extra], out),
+                              env=_dryrun_env(), capture_output=True,
+                              text=True, timeout=900)
+        walls[part] = time.perf_counter() - t0
+        require(proc.returncode == 0,
+                f"dry run {part}: {proc.stdout[-1500:]}{proc.stderr[-1500:]}")
+        recs[part] = _record(out, TRAIN_ARCH, shape, proc.stdout)
+
+    # the prefill measured: phase 5's weights and prompt, the plain route,
+    # the cache at the dry run's capacity (the prompt)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    gen = torch.Generator("cuda").manual_seed(seed + 4)
+    params = tf.init_model(gen, cfg, dtype=torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        last, caches = lm_steps.prefill_step(params, {"tokens": prompt}, cfg,
+                                             capacity=LM_PROMPT,
+                                             attn_impl="torch")
+        torch.cuda.synchronize()
+    prefill_peak = torch.cuda.max_memory_allocated()
+    require(bool(torch.isfinite(last).all()), "plain prefill not finite")
+    del params, last, caches, prompt
+    _free_cuda()
+
+    report = {}
+    for part, measured in (("train", train_peak), ("prefill", prefill_peak)):
+        rec = recs[part]
+        pred = _predicted(rec)
+        rel = pred / measured - 1.0
+        report[part] = {
+            "memory": rec["memory"], "predicted_bytes": pred,
+            "measured_max_memory_allocated": measured,
+            "predicted_gib": pred / 2 ** 30,
+            "measured_gib": measured / 2 ** 30,
+            "rel_diff": rel,
+            "useful_ratio": roofline.terms(rec)["useful_ratio"],
+            "flops_global": rec["flops_global"],
+            "bytes_global": rec["bytes_global"],
+            "dryrun_wall_s": walls[part],
+            "dryrun_s": {k: rec[k] for k in ("build_s", "global_s",
+                                             "sharded_s")}}
+        require(abs(rel) <= DRYRUN_MEM_TOL,
+                f"12a {part}: the dry run predicts {pred} bytes, the card "
+                f"measured {measured} ({rel:+.2%}, bound "
+                f"{DRYRUN_MEM_TOL:.0%})")
+    emit({"phase": "dryrun_vs_card", "tolerance": DRYRUN_MEM_TOL, **report})
+
+
+def start_production_dryruns():
+    """Phase 12b, started: every run of PRODUCTION_RUNS in a process of
+    its own (a fake process group of 256 or 512 ranks each)."""
+    out = DRYRUN_DIR / "production"
+    return [(arch, shape, extra, time.monotonic(), subprocess.Popen(
+        _dryrun_cmd(arch, shape, extra, out), env=_dryrun_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for arch, shape, extra in PRODUCTION_RUNS], out
+
+
+def finish_production_dryruns(started):
+    """Phase 12b, read: each run's per-device GiB, global FLOPs and
+    collective MiB a device, as the reference's line prints them, and how
+    long it took.  A run not done within PRODUCTION_LIMIT_S of its start
+    is stopped and fails the phase."""
+    from repro_torch.launch import roofline
+    procs, out = started
+    runs = {}
+    try:
+        for arch, shape, extra, t0, proc in procs:
+            left = PRODUCTION_LIMIT_S - (time.monotonic() - t0)
+            try:
+                stdout, _ = proc.communicate(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"12b {arch} x {shape} not done in "
+                                   f"{PRODUCTION_LIMIT_S} s")
+            require(proc.returncode == 0,
+                    f"12b {arch} x {shape}: {stdout[-2000:]}")
+            rec = _record(out, arch, shape, stdout)
+            t = roofline.terms(rec)
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith("[dryrun]")][-1]
+            print(line, flush=True)
+            runs[f"{arch}__{shape}__{rec['mesh']}"] = {
+                "line": line,
+                "gib_per_device": t["hbm_gib_per_dev"],
+                "flops_global": rec["flops_global"],
+                "collective_mib_per_device": sum(
+                    rec["collective_bytes_per_device"].values()) / 2 ** 20,
+                "collective_bytes_per_device":
+                    rec["collective_bytes_per_device"],
+                "memory": rec["memory"], "terms": t,
+                "seconds": {k: rec[k] for k in ("build_s", "global_s",
+                                                "sharded_s")},
+                "wall_s": time.monotonic() - t0}
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    emit({"phase": "dryrun_production", "runs": runs})
+
+
+def sharded_prefill(seed, want_logits):
+    """Phase 12c: phase 5's prefill (qwen3-14b, LM_LAYERS layers, the
+    same weights and prompt) with DTensor params on one NCCL rank's 1 x 1
+    ("data", "model") mesh under ``make_rules``: attention runs on each
+    rank's local heads through the flash kernel, one launch a layer.  The
+    same kernels run in the same order as phase 5's, so the last
+    position's logits must equal phase 5's bit for bit.  Returns the flash
+    launches."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, lm_steps
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_map
+    from repro_torch.sharding import placements, use_rules
+    from repro_torch.sharding.rules import P, spec_of
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    gen = torch.Generator("cuda").manual_seed(seed + 4)
+    params = tf.init_model(gen, cfg, dtype=torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda")
+    cap = lm_steps.cache_capacity(cfg, InputShape(
+        "lm", LM_PROMPT + LM_NEW, LM_BATCH, "prefill"))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rules = mesh_mod.make_rules(mesh)
+
+        def lay_out(tree, specs):
+            return tree_map(lambda t, sp: DTensor.from_local(
+                t, mesh, placements(sp, mesh), run_check=False), tree, specs)
+        dparams = lay_out(params, rules.pspec_tree(params))
+        caches = tf.init_cache(cfg, LM_BATCH, cap, device="cuda")
+        dcaches = lay_out(caches, dryrun.cache_pspec_tree(caches, mesh,
+                                                           rules))
+        batch = {"tokens": DTensor.from_local(
+            prompt, mesh, placements(P(("data",), None), mesh),
+            run_check=False)}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad(), use_rules(rules), implicit_replication():
+            logits, _, _ = tf.forward(dparams, batch, cfg,
+                                      dtype=torch.bfloat16, caches=dcaches,
+                                      remat=False, attn_impl="kernel")
+            last = lm_steps.last_logits(logits, cfg)
+            layout = spec_of(last)
+            got = last.full_tensor()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    require(counts == {"lstm_cell": 0, "gru_cell": 0,
+                       "flash_attention": cfg.n_layers},
+            f"12c launch counts {counts}, expected {cfg.n_layers} flash "
+            "launches (one a layer)")
+    diff = float((got.float() - want_logits.float()).abs().max())
+    require(got.shape == want_logits.shape and bool(torch.isfinite(got).all())
+            and torch.equal(got, want_logits),
+            f"12c logits differ from phase 5's: max abs {diff:.4g}")
+    emit({"phase": "sharded_prefill", "mesh": "1x1 (nccl)", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "batch": LM_BATCH,
+          "prompt_len": LM_PROMPT, "launches": counts,
+          "logits_layout": repr(layout), "equal_to_phase5": True,
+          "max_abs_diff": diff, "wall_ms": wall * 1e3})
+    del params, dparams, caches, dcaches, logits, last, got
+    _free_cuda()
+    return counts["flash_attention"]
 
 
 def main():
@@ -2709,7 +3071,7 @@ def main():
     train_times = time_training_layer(args.seed)
 
     # ---- phase 5: the dense-LM prefill and decode slice
-    launches["flash_attention"] = lm_slice(args.seed)
+    launches["flash_attention"], lm_logits = lm_slice(args.seed)
     require(launches["flash_attention"] > 0,
             "flash_attention never launched on its path")
 
@@ -2745,7 +3107,26 @@ def main():
 
     # ---- phase 10: LLM training (no kernel: the plain attention route, as
     # the reference trains)
-    train_flash = lm_train_slice(args.seed)
+    train_flash, train_peak = lm_train_slice(args.seed)
+
+    # ---- phase 12b starts first: the production-mesh dry runs are host
+    # work only, in processes of their own, read after phase 12c
+    production = start_production_dryruns()
+
+    # ---- phase 11: the paper's examples, on the layer kernel
+    example_launches = examples_slice(args.seed)
+    for n, k in example_launches.items():
+        require(k > 0, f"lstm_cell never launched by {n}")
+
+    # ---- phase 12a: the dry run's memory model against the card
+    dryrun_vs_card(args.seed, train_peak)
+
+    # ---- phase 12c: a sharded prefill (DTensor params, one NCCL rank,
+    # the production rules) through the flash kernel
+    sharded_flash = sharded_prefill(args.seed, lm_logits)
+
+    # ---- phase 12b: read the production-mesh dry runs
+    finish_production_dryruns(production)
 
     replaces = {"lstm_cell": "src/repro/kernels/lstm_cell.py:24",
                 "gru_cell": "src/repro/kernels/gru_cell.py:17",
@@ -2761,7 +3142,8 @@ def main():
         if n == "flash_attention":
             return {"launches_by_path": {"lm_qwen3_14b": launches[n],
                                          "lm_families": family_launches,
-                                         "lm_train": train_flash},
+                                         "lm_train": train_flash,
+                                         "lm_sharded_prefill": sharded_flash},
                     "head_dims": list(HEAD_DIMS),
                     "by_shape": {label: {
                         "shape": dict(zip("B S Hq Hkv hd".split(), shp)),
@@ -2778,7 +3160,10 @@ def main():
                                      "train_dp": (dp_launches
                                                   if n == "lstm_cell" else 0),
                                      **{k: (v if n == "lstm_cell" else 0)
-                                        for k, v in lstm_more.items()}},
+                                        for k, v in lstm_more.items()},
+                                     **{f"example_{k}":
+                                        (v if n == "lstm_cell" else 0)
+                                        for k, v in example_launches.items()}},
                 "train_shape": {
                     "M": tt["M"], "B": tt["B"], "T": tt["T"], "I": tt["I"],
                     "H": tt["H"], "max_abs_err": train_errs[n],
@@ -2805,9 +3190,10 @@ def main():
          "replaces": replaces[n],
          "launches": (launches[n] + train_launches.get(n, 0)
                       + int8_launches.get(n, 0)
-                      + (sum(family_launches.values())
+                      + (sum(family_launches.values()) + sharded_flash
                          if n == "flash_attention" else 0)
                       + (dp_launches + sum(lstm_more.values())
+                         + sum(example_launches.values())
                          if n == "lstm_cell" else 0)),
          "max_abs_err": errs[n], "ms": times[n]["ms"],
          "plain_ms": times[n]["plain_ms"], "bound_ms": times[n]["bound_ms"],

@@ -19,6 +19,9 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import constrain
+from repro_torch.sharding.rules import local_region
+
 
 def horizon_weights(horizon: int, beta: float, dtype=torch.float32,
                     device=None):
@@ -118,17 +121,22 @@ class _HeadLogits(torch.autograd.Function):
 
 
 def head_logits(h, w_head):
-    """fp32 logits of hidden states h (..., d) under the head (d, V), the
-    head cast to h's dtype first."""
+    """fp32 logits of hidden states h (B, c, d) under the head (d, V), the
+    head cast to h's dtype first.  On a mesh each rank computes its rows'
+    logits for its block of the vocabulary (DTensor has no rule for the
+    fp32-output product)."""
     w = w_head.to(h.dtype)
     if h.dtype == torch.float32:
         return torch.matmul(h, w)
-    return _HeadLogits.apply(h, w)
+    return local_region(_HeadLogits.apply, (h, w),
+                        (("batch", None, None), (None, "act_vocab")),
+                        ("batch", None, "act_vocab"))
 
 
 def _ce_chunk(h, w_head, labels, mw):
     """One chunk's weighted negative log-likelihood sum and weight sum."""
-    logp = torch.log_softmax(head_logits(h, w_head), dim=-1)
+    logits = constrain(head_logits(h, w_head), "batch", None, "act_vocab")
+    logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     return torch.sum(-ll * mw), torch.sum(mw)
 

@@ -27,18 +27,27 @@ forward only (so is the reference's, which trains on its plain path), and
 on a CUDA tensor that autograd would record it raises.  A shape the
 kernel cannot take raises; it never falls back to the plain path.  MLA's
 q and v head dims differ, so the JAX package never sends it to its
-kernel; ``mla_forward`` takes the plain path on either route.  Sharding
-constraints of the JAX package have no counterpart on one card and are
-dropped.
+kernel; ``mla_forward`` takes the plain path on either route.
+
+The sharding constraints sit at the reference's sites (projections on
+``act_ff``, (B, S, H, hd) activations through ``constrain_heads``, decode
+caches on ``cache_seq``); without rules they return their input.  On
+``DTensor`` activations the kernel route runs the flash kernel on each
+rank's local block of batch and heads (:func:`on_local_heads`), since a
+kernel takes plain device pointers.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.sharding import constrain, constrain_heads
+from repro_torch.sharding.rules import (local_region, matmul, reshape,
+                                        split_last, write_slice)
 
 NEG_INF = -1e9
 Q_CHUNK = 512           # q-block size of the chunked (memory-bounded) path
@@ -71,16 +80,19 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig,
 def _project_qkv(params, x, cfg: ModelConfig, positions):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = torch.matmul(x, params["wq"].to(x.dtype))
-    k = torch.matmul(x, params["wk"].to(x.dtype))
-    v = torch.matmul(x, params["wv"].to(x.dtype))
+    q = constrain(matmul(x, params["wq"].to(x.dtype)),
+                  "batch", None, "act_ff")
+    k = constrain(matmul(x, params["wk"].to(x.dtype)),
+                  "batch", None, "act_ff")
+    v = constrain(matmul(x, params["wv"].to(x.dtype)),
+                  "batch", None, "act_ff")
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    q = split_last(q, B, S, cfg.n_heads, hd)
+    k = split_last(k, B, S, cfg.n_kv_heads, hd)
+    v = split_last(v, B, S, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -120,6 +132,10 @@ def _causal_attend(q, k, v, scale, window: int, dtype,
     """Causal attention over the full sequence; (B,S,H,hd) in and out."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r}; pick from {ATTN_IMPLS}")
+    if isinstance(q, DTensor):
+        return on_local_heads(
+            lambda *qkv: _causal_attend(*qkv, scale, window, dtype,
+                                        attn_impl), q, k, v)
     if attn_impl == "kernel":
         if v.shape[-1] != q.shape[-1]:
             raise ValueError(
@@ -127,6 +143,25 @@ def _causal_attend(q, k, v, scale, window: int, dtype,
                 f"{q.shape[-1]} and {v.shape[-1]}")
         return ops.flash_attention(q, k, v, window=window, scale=scale)
     return _causal_attend_plain(q, k, v, scale, window, dtype)
+
+
+def on_local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` (causal attention, (B, S, H, hd) in and out) on
+    each rank's local block of DTensor q, k, v: batch and heads stay split
+    as q has them, the sequence and head dim are gathered whole.  The GQA
+    fold of a local head onto its local KV head holds when k is split over
+    heads as q is, so otherwise the heads are gathered too.  Rows and
+    heads are independent, so the blocks compute the whole result; the
+    flash kernel, which takes plain device pointers, runs this way."""
+    def keep(t, dims):
+        return [p if type(p) is Shard and p.dim in dims else Replicate()
+                for p in t.placements]
+    want = keep(q, (0, 2))
+    if keep(k, (0, 2)) != want:
+        want = keep(q, (0,))
+    mesh = q.device_mesh
+    out = fn(*(t.redistribute(mesh, want).to_local() for t in (q, k, v)))
+    return DTensor.from_local(out, mesh, want, run_check=False)
 
 
 def _causal_attend_plain(q, k, v, scale, window: int, dtype):
@@ -148,7 +183,7 @@ def _causal_attend_plain(q, k, v, scale, window: int, dtype):
             mask &= j > i - window
         s = torch.where(mask[None, :, None, :], s.float(), NEG_INF)
         w = torch.softmax(s, dim=-1).to(dtype)
-        return _gqa_out(w, v)                             # (B,qc,H,hd)
+        return constrain_heads(_gqa_out(w, v))            # (B,qc,H,hd)
 
     if S < CHUNK_THRESHOLD or S % Q_CHUNK:
         return block(q, 0)
@@ -168,15 +203,17 @@ def attention_forward(params, x, cfg: ModelConfig, *, cache=None,
     hd = cfg.resolved_head_dim
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, cfg, positions)
-    o = _causal_attend(q, k, v, hd ** -0.5, window, x.dtype, attn_impl)
-    out = torch.matmul(o.reshape(B, S, cfg.n_heads * hd),
-                       params["wo"].to(x.dtype))
+    q, k, v = constrain_heads(q), constrain_heads(k), constrain_heads(v)
+    o = constrain_heads(_causal_attend(q, k, v, hd ** -0.5, window, x.dtype,
+                                       attn_impl))
+    out = matmul(reshape(o, B, S, cfg.n_heads * hd),
+                 params["wo"].to(x.dtype))
     if cache is not None:
         W = cache["k"].shape[1]
         if S > W:
             raise ValueError(f"prefill of {S} tokens into a cache of {W}")
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
+        write_slice(cache["k"], 1, 0, k.to(cache["k"].dtype))
+        write_slice(cache["v"], 1, 0, v.to(cache["v"].dtype))
         cache["pos_ids"][:S] = torch.arange(S, device=x.device)
     return out, cache
 
@@ -194,19 +231,29 @@ def attention_decode(params, x, cache, pos, cfg: ModelConfig, *,
 
     W = cache["k"].shape[1]
     slot = (pos % W) if window else min(pos, W - 1)
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    write_slice(cache["k"], 1, slot, k.to(cache["k"].dtype))
+    write_slice(cache["v"], 1, slot, v.to(cache["v"].dtype))
     cache["pos_ids"][slot] = pos
-    kc, vc, pos_ids = cache["k"], cache["v"], cache["pos_ids"]
+    kc = constrain(cache["k"], "batch", "cache_seq", None, None)
+    vc = constrain(cache["v"], "batch", "cache_seq", None, None)
+    pos_ids = cache["pos_ids"]
 
-    scores = _gqa_scores(q, kc) * (hd ** -0.5)           # (B,1,H,W)
+    # on a mesh each rank scores and sums its slots of the sequence-split
+    # cache; the softmax gathers the (small) scores, the output is summed
+    heads = ("batch", None, None, None)                  # (B, 1, H, hd)
+    kv = ("batch", "cache_seq", None, None)              # (B, W, Hkv, hd)
+    slots = ("batch", None, None, "cache_seq")           # (B, 1, H, W)
+    scores = local_region(_gqa_scores, (q, kc), (heads, kv),
+                          slots) * (hd ** -0.5)
     valid = (pos_ids >= 0) & (pos_ids <= pos)
     if window:
         valid &= pos_ids > pos - window
     scores = torch.where(valid[None, None, None, :], scores.float(), NEG_INF)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = _gqa_out(w, vc).reshape(B, 1, cfg.n_heads * hd)
-    out = torch.matmul(*_promoted(o, params["wo"].to(x.dtype)))
+    o = reshape(local_region(_gqa_out, (w, vc), (slots, kv), heads,
+                             partial=("cache_seq",)),
+                B, 1, cfg.n_heads * hd)
+    out = matmul(*_promoted(o, params["wo"].to(x.dtype)))
     return out, cache
 
 
@@ -247,16 +294,16 @@ def init_mla(generator: torch.Generator, cfg: ModelConfig,
 
 def _mla_q(params, x, m: MLAConfig, H, positions, eps):
     B, S, _ = x.shape
-    cq = rms_norm(torch.matmul(x, params["wq_down"].to(x.dtype)),
+    cq = rms_norm(matmul(x, params["wq_down"].to(x.dtype)),
                   params["q_ln"], eps)
-    q = torch.matmul(cq, params["wq_up"].to(x.dtype))
-    q = q.reshape(B, S, H, m.qk_nope_dim + m.qk_rope_dim)
+    q = matmul(cq, params["wq_up"].to(x.dtype))
+    q = split_last(q, B, S, H, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     return q_nope, apply_rope(q_rope, positions, 10000.0)
 
 
 def _mla_ckv(params, x, m: MLAConfig, positions, eps):
-    ckv = torch.matmul(x, params["wkv_down"].to(x.dtype))
+    ckv = matmul(x, params["wkv_down"].to(x.dtype))
     c_kv, k_rope = ckv[..., :m.kv_lora_rank], ckv[..., m.kv_lora_rank:]
     c_kv = rms_norm(c_kv, params["kv_ln"], eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, 10000.0)[:, :, 0]
@@ -273,10 +320,11 @@ def mla_forward(params, x, cfg: ModelConfig, *, cache=None, window: int = 0):
     q_nope, q_rope = _mla_q(params, x, m, H, positions, cfg.norm_eps)
     c_kv, k_rope = _mla_ckv(params, x, m, positions, cfg.norm_eps)
 
-    k_nope = torch.matmul(c_kv, params["wk_up"].to(x.dtype))
-    k_nope = k_nope.reshape(B, S, H, m.qk_nope_dim)
-    v = torch.matmul(c_kv, params["wv_up"].to(x.dtype))
-    v = v.reshape(B, S, H, m.v_head_dim)
+    k_nope = matmul(c_kv, params["wk_up"].to(x.dtype))
+    k_nope = split_last(k_nope, B, S, H, m.qk_nope_dim)
+    v = matmul(c_kv, params["wv_up"].to(x.dtype))
+    v = split_last(v, B, S, H, m.v_head_dim)
+    q_nope = constrain(q_nope, "batch", None, "act_heads", None)
 
     # fold q_rope / k_rope into the head dim so the chunked path applies
     q_all = torch.cat([q_nope, q_rope], dim=-1)          # (B,S,H,nope+rope)
@@ -286,16 +334,20 @@ def mla_forward(params, x, cfg: ModelConfig, *, cache=None, window: int = 0):
     # q's head dim (nope + rope) is not v's, so the reference's condition
     # for its flash kernel (src/repro/models/attention.py:112) never holds
     # here: the plain path on either attn_impl
-    o = _causal_attend_plain(q_all, k_all, v, scale, window, x.dtype)
-    out = torch.matmul(o.reshape(B, S, H * m.v_head_dim),
-                       params["wo"].to(x.dtype))
+    if isinstance(q_all, DTensor):
+        o = on_local_heads(lambda *qkv: _causal_attend_plain(
+            *qkv, scale, window, x.dtype), q_all, k_all, v)
+    else:
+        o = _causal_attend_plain(q_all, k_all, v, scale, window, x.dtype)
+    out = matmul(reshape(o, B, S, H * m.v_head_dim),
+                 params["wo"].to(x.dtype))
 
     if cache is not None:
         W = cache["c_kv"].shape[1]
         if S > W:
             raise ValueError(f"prefill of {S} tokens into a cache of {W}")
-        cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
-        cache["k_rope"][:, :S] = k_rope.to(cache["k_rope"].dtype)
+        write_slice(cache["c_kv"], 1, 0, c_kv.to(cache["c_kv"].dtype))
+        write_slice(cache["k_rope"], 1, 0, k_rope.to(cache["k_rope"].dtype))
         cache["pos_ids"][:S] = torch.arange(S, device=x.device)
     return out, cache
 
@@ -312,31 +364,43 @@ def mla_decode(params, x, cache, pos, cfg: ModelConfig, *, window: int = 0):
 
     W = cache["c_kv"].shape[1]
     slot = (pos % W) if window else min(pos, W - 1)
-    cache["c_kv"][:, slot] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
-    cache["k_rope"][:, slot] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
+    write_slice(cache["c_kv"], 1, slot, c_kv_new.to(cache["c_kv"].dtype))
+    write_slice(cache["k_rope"], 1, slot,
+                k_rope_new.to(cache["k_rope"].dtype))
     cache["pos_ids"][slot] = pos
-    c_kv, k_rope, pos_ids = cache["c_kv"], cache["k_rope"], cache["pos_ids"]
+    c_kv = constrain(cache["c_kv"], "batch", "cache_seq", None)
+    k_rope = constrain(cache["k_rope"], "batch", "cache_seq", None)
+    pos_ids = cache["pos_ids"]
 
     # absorb q through W_uk: q_abs[b,h,r] = sum_c q_nope[b,h,c] Wk_up[r,h,c]
     wk_up = params["wk_up"].to(x.dtype).reshape(m.kv_lora_rank, H,
                                                 m.qk_nope_dim)
     q_abs = torch.einsum("bhc,rhc->bhr", q_nope[:, 0], wk_up)   # (B,H,r)
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
-    scores = (torch.einsum("bhr,bwr->bhw", *_promoted(q_abs, c_kv))
-              + torch.einsum("bhc,bwc->bhw", *_promoted(q_rope[:, 0],
-                                                        k_rope))) * scale
+    # on a mesh each rank scores and sums its slots of the sequence-split
+    # latent cache, as in attention_decode
+    row, lat = ("batch", None, None), ("batch", "cache_seq", None)
+    slots = ("batch", None, "cache_seq")                 # (B, H, W)
+    scores = local_region(
+        lambda qa, ckv, qr, kr: (
+            torch.einsum("bhr,bwr->bhw", *_promoted(qa, ckv))
+            + torch.einsum("bhc,bwc->bhw", *_promoted(qr, kr))),
+        (q_abs, c_kv, q_rope[:, 0], k_rope), (row, lat, row, lat),
+        slots) * scale
     valid = (pos_ids >= 0) & (pos_ids <= pos)
     if window:
         valid &= pos_ids > pos - window
     scores = torch.where(valid[None, None, :], scores.float(), NEG_INF)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
-    o_lat = torch.einsum("bhw,bwr->bhr", *_promoted(w, c_kv))  # (B,H,r)
+    o_lat = local_region(                                # (B,H,r)
+        lambda w, ckv: torch.einsum("bhw,bwr->bhr", *_promoted(w, ckv)),
+        (w, c_kv), (slots, lat), row, partial=("cache_seq",))
     # absorb the output through W_uv
     wv_up = params["wv_up"].to(x.dtype).reshape(m.kv_lora_rank, H,
                                                 m.v_head_dim)
     o = torch.einsum("bhr,rhv->bhv", *_promoted(o_lat, wv_up))
-    o = o.reshape(B, 1, H * m.v_head_dim)
-    out = torch.matmul(*_promoted(o, params["wo"].to(x.dtype)))
+    o = reshape(o, B, 1, H * m.v_head_dim)
+    out = matmul(*_promoted(o, params["wo"].to(x.dtype)))
     return out, cache
 
 

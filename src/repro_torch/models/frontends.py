@@ -15,7 +15,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, embed
+from repro_torch.sharding import constrain
+from repro_torch.sharding.rules import local_region, matmul
 
 
 # ------------------------------------------------------------------ VLM
@@ -32,10 +34,10 @@ def init_projector(generator: torch.Generator, cfg: ModelConfig,
 
 def project_media(params, media, dtype):
     """media: (B, n_media, embed_dim) -> (B, n_media, d_model)."""
-    h = torch.matmul(media.to(dtype), params["proj_in"].to(dtype))
+    h = matmul(media.to(dtype), params["proj_in"].to(dtype))
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(h, approximate="tanh")
-    return torch.matmul(h, params["proj_out"].to(dtype))
+    return matmul(h, params["proj_out"].to(dtype))
 
 
 # ------------------------------------------------------------------ audio
@@ -54,12 +56,17 @@ def init_codebook_embeddings(generator: torch.Generator, cfg: ModelConfig,
 
 def embed_codes(params, codes, dtype):
     """codes: (B, K, S) -> the K codebooks' embeddings summed (B, S, d)."""
-    out = F.embedding(codes[:, 0], params["cb_embed"][0].to(dtype))
+    out = embed(params["cb_embed"][0], codes[:, 0], dtype)
     for k in range(1, codes.shape[1]):
-        out = out + F.embedding(codes[:, k], params["cb_embed"][k].to(dtype))
+        out = out + embed(params["cb_embed"][k], codes[:, k], dtype)
     return out
 
 
 def codebook_logits(params, h):
     """h: (B, S, d) -> (B, K, S, V)."""
-    return torch.einsum("bsd,dkv->bksv", h, params["cb_heads"].to(h.dtype))
+    logits = local_region(
+        lambda h, w: torch.einsum("bsd,dkv->bksv", h, w),
+        (h, params["cb_heads"].to(h.dtype)),
+        (("batch", None, None), (None, None, "act_vocab")),
+        ("batch", None, None, "act_vocab"))
+    return constrain(logits, "batch", None, None, "act_vocab")

@@ -1,5 +1,6 @@
 """Shared building blocks: dense init, RMS and layer norm, RoPE, the SwiGLU
-MLP and token embeddings; the counterpart of
+MLP (its hidden constrained to ``act_ff``) and token embeddings; the
+counterpart of
 ``src/repro/models/layers.py``.  Also the numpy -> tensor conversion of
 parameter trees made by the JAX package, ``tree_map`` / ``tree_leaves``
 over such trees, and ``seeded_generator``, the port's counterpart of a
@@ -14,6 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import constrain
+from repro_torch.sharding.rules import matmul, replicated, whole_dim
 
 
 def seeded_generator(seed: int, *stream: int) -> torch.Generator:
@@ -37,7 +41,7 @@ def rms_norm(x, scale, eps=1e-5):
     """RMS norm over the last axis, computed in fp32, cast back to x's
     dtype."""
     dt = x.dtype
-    x = x.float()
+    x = whole_dim(x.float())
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * scale.float()).to(dt)
 
@@ -46,7 +50,7 @@ def layer_norm(x, scale, bias, eps=1e-5):
     """Layer norm over the last axis (biased variance), computed in fp32,
     cast back to x's dtype."""
     dt = x.dtype
-    x = x.float()
+    x = whole_dim(x.float())
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
     y = (x - mu) * torch.rsqrt(var + eps)
@@ -85,9 +89,10 @@ def init_mlp(generator: torch.Generator, d_model, d_ff,
 
 def mlp(params, x):
     """SwiGLU MLP, silu on the gate. x: (..., d)."""
-    h = torch.matmul(x, params["w_in"].to(x.dtype))
-    g = torch.matmul(x, params["w_gate"].to(x.dtype))
-    return torch.matmul(h * F.silu(g), params["w_out"].to(x.dtype))
+    h = matmul(x, params["w_in"].to(x.dtype))
+    g = matmul(x, params["w_gate"].to(x.dtype))
+    h = constrain(h * F.silu(g), "batch", None, "act_ff")
+    return matmul(h, params["w_out"].to(x.dtype))
 
 
 # ------------------------------------------------------------------ embeddings
@@ -100,8 +105,11 @@ def init_embedding(generator: torch.Generator, vocab, d_model,
 
 def embed(embed_tokens, tokens, dtype):
     """Rows ``tokens`` of the table cast to ``dtype`` (cast, then gather;
-    the cast is free when the table is already in ``dtype``)."""
-    return F.embedding(tokens, embed_tokens.to(dtype))
+    the cast is free when the table is already in ``dtype``).  A sharded
+    table is gathered whole first, as FSDP gathers a weight before its
+    use (DTensor's vocab-sharded lookup cannot be redistributed to the
+    batch-sharded residual stream)."""
+    return F.embedding(tokens, replicated(embed_tokens).to(dtype))
 
 
 # --------------------------------------------------- numpy -> port trees

@@ -8,7 +8,9 @@ auxiliary load-balance loss, dispatch and combine as one-hot products built
 one k-slot at a time (the largest intermediate is (G, S, E, C)), SwiGLU
 experts, optional always-on shared experts.  The products are plain torch
 ``einsum`` / ``matmul``, as the JAX package computes them outside any
-Pallas kernel.  Its sharding constraints have no counterpart on one card.
+Pallas kernel.  The sharding constraints sit at the reference's sites:
+groups over the batch axes, the (G, E, C, d) expert buffers with E over the
+tensor axis, the shared experts' hidden on ``act_ff``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding import constrain
+from repro_torch.sharding.rules import local_region, matmul, reshape
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig,
@@ -86,7 +90,9 @@ def _route(router_w, x32, cfg: MoEConfig) -> Tuple[torch.Tensor,
                                                    torch.Tensor,
                                                    torch.Tensor]:
     """x32: (G, S, d) fp32 -> (gates (G,S,k), experts (G,S,k), aux loss)."""
-    logits = torch.matmul(x32, router_w)
+    logits = local_region(torch.matmul, (x32, router_w),
+                          (("moe_group", None, None), (None, None)),
+                          ("moe_group", None, None))
     probs = torch.softmax(logits, dim=-1)
     gates, experts = _top_k(probs, cfg.top_k)            # (G,S,k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
@@ -110,6 +116,20 @@ def _positions(experts, E: int, C: int):
     return pos, pos < C
 
 
+def _experts(disp, weights, xg, w_in, w_gate, w_out):
+    """Dispatch (G, S, E, C) masks' tokens into expert buffers, the SwiGLU
+    experts, and the gate-weighted combine back to (G, S, d)."""
+    xe = constrain(torch.einsum("gsec,gsd->gecd", disp, xg),  # (G,E,C,d)
+                   "moe_batch", "act_experts", None, None)
+    h = torch.einsum("gecd,edf->gecf", xe, w_in)
+    g = torch.einsum("gecd,edf->gecf", xe, w_gate)
+    h = h * F.silu(g)
+    ye = constrain(torch.einsum("gecf,efd->gecd", h, w_out),  # (G,E,C,d)
+                   "moe_batch", "act_experts", None, None)
+    # combine: gate-weighted scatter back to token order
+    return torch.einsum("gsec,gecd->gsd", weights, ye)
+
+
 def moe_ffn(params, x, cfg: ModelConfig):
     """x: (B, S, d) -> (out (B, S, d), aux_loss scalar).
 
@@ -122,7 +142,7 @@ def moe_ffn(params, x, cfg: ModelConfig):
     tokens = B * S
     gsz = _choose_group(tokens, min(e.group_size, tokens))
     G = tokens // gsz
-    xg = x.reshape(G, gsz, d)
+    xg = constrain(reshape(x, G, gsz, d), "moe_group", None, None)
 
     gates, experts, aux = _route(params["router"], xg.float(), e)
     C = capacity(e, gsz)
@@ -142,23 +162,22 @@ def moe_ffn(params, x, cfg: ModelConfig):
         disp = disp + oh
         weights = weights + oh * gates_k[..., kk, None, None].to(x.dtype)
 
-    xe = torch.einsum("gsec,gsd->gecd", disp, xg)        # (G,E,C,d)
-
-    # expert FFN (SwiGLU)
-    w_in = params["moe_w_in"].to(x.dtype)
-    w_gate = params["moe_w_gate"].to(x.dtype)
-    w_out = params["moe_w_out"].to(x.dtype)
-    h = torch.einsum("gecd,edf->gecf", xe, w_in)
-    g = torch.einsum("gecd,edf->gecf", xe, w_gate)
-    h = h * F.silu(g)
-    ye = torch.einsum("gecf,efd->gecd", h, w_out)        # (G,E,C,d)
-
-    # combine: gate-weighted scatter back to token order
-    out = torch.einsum("gsec,gecd->gsd", weights, ye).reshape(B, S, d)
+    # on a mesh each rank runs its groups' tokens through its experts
+    # (expert parallel over the tensor axis), the combine summed across
+    # ranks
+    mask = ("moe_batch", None, "act_experts", None)
+    w = ("act_experts", None, None)
+    out = local_region(
+        _experts, (disp, weights, xg, params["moe_w_in"].to(x.dtype),
+                   params["moe_w_gate"].to(x.dtype),
+                   params["moe_w_out"].to(x.dtype)),
+        (mask, mask, ("moe_batch", None, None), w, w, w),
+        ("moe_batch", None, None), partial=("act_experts",))
+    out = reshape(out, B, S, d)
 
     if e.n_shared_experts:
-        h = torch.matmul(x, params["shared_w_in"].to(x.dtype))
-        g = torch.matmul(x, params["shared_w_gate"].to(x.dtype))
-        out = out + torch.matmul(h * F.silu(g),
-                                 params["shared_w_out"].to(x.dtype))
+        h = matmul(x, params["shared_w_in"].to(x.dtype))
+        g = matmul(x, params["shared_w_gate"].to(x.dtype))
+        h = constrain(h * F.silu(g), "batch", None, "act_ff")
+        out = out + matmul(h, params["shared_w_out"].to(x.dtype))
     return out, aux * e.router_aux_weight

@@ -20,6 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.sharding import constrain
+from repro_torch.sharding.rules import local_region, matmul, reshape
 
 
 def _dims(cfg: ModelConfig):
@@ -111,17 +113,44 @@ def ssm_forward(params, x, cfg: ModelConfig, *, state=None
     pad = (-S) % Q
     nc = (S + pad) // Q
 
-    zxbcdt = torch.matmul(x, params["in_proj"].to(x.dtype))
+    zxbcdt = matmul(x, params["in_proj"].to(x.dtype))
     z, xBC_raw, dt_raw = _split_proj(zxbcdt, cfg)
-    xBC = _conv(xBC_raw, params["conv_w"].to(x.dtype),
-                params["conv_b"].to(x.dtype))
+    row = ("batch", None, None)           # on a mesh, each rank's rows
+    xBC = local_region(_conv, (xBC_raw, params["conv_w"].to(x.dtype),
+                               params["conv_b"].to(x.dtype)),
+                       (row, (None, None), (None,)), row)
     xh, Bm, Cm, dt, decay = _heads(xBC, dt_raw, params, cfg)
+    xh = constrain(xh, "batch", None, "act_heads", None)
     if pad:
         # pad to a chunk multiple with IDENTITY steps: decay 1, no input
         def pz(t):
             return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
         xh, Bm, Cm, dt = map(pz, (xh, Bm, Cm, dt))
         decay = F.pad(decay, (0, 0, 0, pad), value=1.0)
+
+    # on a mesh each rank scans its batch rows and heads
+    seq = ("batch", None, "act_heads", None)          # (B, S, nh, ...)
+    gate = ("batch", None, "act_heads")               # (B, S, nh)
+    st_axes = ("batch", "act_heads", None, None)      # (B, nh, hd, ds)
+    y, st = local_region(
+        lambda *a: _ssd_scan(*a, Q=Q, nc=nc, state_dim=s.state_dim),
+        (xh, Bm, Cm, dt, decay, None if state is None else state["ssm"]),
+        (seq, seq, seq, gate, gate, st_axes), (seq, st_axes))
+    y = y[:, :S]
+    y = y + xh[:, :S] * params["d_skip"][:, None].to(y.dtype)
+    y = reshape(y, B, S, d_in)
+    y = rms_norm(y * F.silu(z), params["norm_w"], cfg.norm_eps)
+    out = matmul(y, params["out_proj"].to(x.dtype))
+
+    new_conv = xBC_raw[:, S - (s.conv_width - 1):]
+    return out, {"ssm": st, "conv": new_conv}
+
+
+def _ssd_scan(xh, Bm, Cm, dt, decay, st, *, Q: int, nc: int, state_dim: int):
+    """The chunked SSD scan over padded (B, nc * Q, ...) inputs from the
+    state ``st`` (zeros when None).  Returns (y (B, nc * Q, nh, hd), the
+    final state).  Batch rows and heads are independent."""
+    B, _, nh, hd = xh.shape
 
     # chunks of (B, Q, ...); the quadratic intra-chunk term is one
     # (B, Q, Q, nh) block at a time
@@ -130,9 +159,10 @@ def ssm_forward(params, x, cfg: ModelConfig, *, state=None
     xh_c, Bm_c, Cm_c, dt_c, decay_c = map(ch, (xh, Bm, Cm, dt, decay))
     xdt_c = xh_c * dt_c[..., None].to(xh_c.dtype)          # fold dt into x
 
-    st = (torch.zeros((B, nh, s.head_dim, s.state_dim), dtype=torch.float32,
-                      device=x.device) if state is None else state["ssm"])
-    iq = torch.arange(Q, device=x.device)
+    if st is None:
+        st = torch.zeros((B, nh, hd, state_dim), dtype=torch.float32,
+                         device=xh.device)
+    iq = torch.arange(Q, device=xh.device)
     causal = (iq[:, None] >= iq[None, :])[None, :, :, None]
     ys = []
     for c in range(nc):
@@ -156,14 +186,7 @@ def ssm_forward(params, x, cfg: ModelConfig, *, state=None
                                xdt.float())
         st = st * torch.exp(cum[:, -1, :])[..., None, None] + contrib
         ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=1).reshape(B, S + pad, nh, s.head_dim)[:, :S]
-    y = y + xh[:, :S] * params["d_skip"][:, None].to(y.dtype)
-    y = y.reshape(B, S, d_in)
-    y = rms_norm(y * F.silu(z), params["norm_w"], cfg.norm_eps)
-    out = torch.matmul(y, params["out_proj"].to(x.dtype))
-
-    new_conv = xBC_raw[:, S - (s.conv_width - 1):]
-    return out, {"ssm": st, "conv": new_conv}
+    return torch.stack(ys, dim=1).reshape(B, nc * Q, nh, hd), st
 
 
 def ssm_decode(params, x, state, cfg: ModelConfig
@@ -172,22 +195,35 @@ def ssm_decode(params, x, state, cfg: ModelConfig
     Returns (out (B, 1, d), new state)."""
     s, d_in, nh = _dims(cfg)
     B = x.shape[0]
-    zxbcdt = torch.matmul(x[:, 0], params["in_proj"].to(x.dtype))
+    zxbcdt = matmul(x[:, 0], params["in_proj"].to(x.dtype))
     z, xBC_raw, dt_raw = _split_proj(zxbcdt, cfg)
-    xBC, new_conv = _conv_step(xBC_raw, state["conv"],
-                               params["conv_w"].to(x.dtype),
-                               params["conv_b"].to(x.dtype))
+    # on a mesh each rank steps its rows (and, below, its heads)
+    row, rows = ("batch", None), ("batch", None, None)
+    xBC, new_conv = local_region(
+        _conv_step, (xBC_raw, state["conv"], params["conv_w"].to(x.dtype),
+                     params["conv_b"].to(x.dtype)),
+        (row, rows, (None, None), (None,)), (row, rows))
     xh, Bm, Cm, dt, decay = _heads(xBC, dt_raw, params, cfg)  # (B,nh,hd)...
 
-    contrib = torch.einsum("bhn,bhp->bhpn", Bm.float(),
-                           (xh * dt[..., None].to(xh.dtype)).float())
-    st = state["ssm"] * decay[..., None, None] + contrib    # (B,nh,hd,ds)
-    y = torch.einsum("bhn,bhpn->bhp", Cm.float(), st)
+    heads, gate = ("batch", "act_heads", None), ("batch", "act_heads")
+    st_axes = ("batch", "act_heads", None, None)
+    y, st = local_region(_ssd_step, (Bm, Cm, xh, dt, decay, state["ssm"]),
+                         (heads, heads, heads, gate, gate, st_axes),
+                         (heads, st_axes))
     y = y.to(x.dtype) + xh * params["d_skip"][:, None].to(x.dtype)
     y = y.reshape(B, d_in)
     y = rms_norm(y * F.silu(z), params["norm_w"], cfg.norm_eps)
-    out = torch.matmul(y, params["out_proj"].to(x.dtype))
+    out = matmul(y, params["out_proj"].to(x.dtype))
     return out[:, None], {"ssm": st, "conv": new_conv}
+
+
+def _ssd_step(Bm, Cm, xh, dt, decay, st):
+    """One token of the SSD recurrence: (y (B,nh,hd) fp32, the new state
+    (B,nh,hd,ds)).  Batch rows and heads are independent."""
+    contrib = torch.einsum("bhn,bhp->bhpn", Bm.float(),
+                           (xh * dt[..., None].to(xh.dtype)).float())
+    st = st * decay[..., None, None] + contrib              # (B,nh,hd,ds)
+    return torch.einsum("bhn,bhpn->bhp", Cm.float(), st), st
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,

@@ -39,6 +39,12 @@ state into its slice.  Full-sequence attention takes ``attn_impl`` (see
 reference's ``jax.checkpoint`` granularity: a dense or MoE block, each
 Mamba2 block, each call of the shared attention block, each mLSTM and
 sLSTM block.
+
+On DTensor params under ``sharding.use_rules`` each block first gathers
+its params' FSDP split (``gather_fsdp``: the per-layer all-gather of
+FSDP, inside the checkpointed block so the recompute gathers again), and
+the residual stream, logits and microbatches are constrained at the
+reference's sites; without rules all of these return their input.
 """
 from __future__ import annotations
 
@@ -59,6 +65,8 @@ from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (dense_init, embed, init_embedding,
                                        init_mlp, mlp, rms_norm,
                                        tree_from_numpy, tree_leaves, tree_map)
+from repro_torch.sharding import constrain
+from repro_torch.sharding.rules import gather_fsdp, matmul, reshape
 
 
 def _map(fn, tree):
@@ -229,14 +237,16 @@ def _attend_dec(p, h, cache, pos, cfg: ModelConfig, window):
 
 def _dense_block_fwd(p, x, cfg: ModelConfig, *, cache=None, window=0,
                      attn_impl="kernel"):
+    p = gather_fsdp(p)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = _attend_fwd(p["attn"], h, cfg, cache, window, attn_impl)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(p["mlp"], h), cache
+    return constrain(x + mlp(p["mlp"], h), "batch", None, "embed"), cache
 
 
 def _dense_block_dec(p, x, cache, pos, cfg: ModelConfig, *, window=0):
+    p = gather_fsdp(p)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = _attend_dec(p["attn"], h, cache, pos, cfg, window)
     x = x + a
@@ -246,15 +256,17 @@ def _dense_block_dec(p, x, cache, pos, cfg: ModelConfig, *, window=0):
 
 def _moe_block_fwd(p, x, cfg: ModelConfig, *, cache=None, window=0,
                    attn_impl="kernel"):
+    p = gather_fsdp(p)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = _attend_fwd(p["attn"], h, cfg, cache, window, attn_impl)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     ff, aux = moe_mod.moe_ffn(p["moe"], h, cfg)
-    return x + ff, cache, aux
+    return constrain(x + ff, "batch", None, "embed"), cache, aux
 
 
 def _moe_block_dec(p, x, cache, pos, cfg: ModelConfig, *, window=0):
+    p = gather_fsdp(p)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = _attend_dec(p["attn"], h, cache, pos, cfg, window)
     x = x + a
@@ -266,13 +278,15 @@ def _moe_block_dec(p, x, cache, pos, cfg: ModelConfig, *, window=0):
 def _residual_fwd(forward_fn, p, x, cfg: ModelConfig):
     """A Mamba2 / mLSTM / sLSTM block over the full sequence from a zero
     state: x + inner(norm(x)), and the inner block's final state."""
+    p = gather_fsdp(p)
     inner = p["ssm"] if "ssm" in p else p["inner"]
     o, st = forward_fn(inner, rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
-    return x + o, st
+    return constrain(x + o, "batch", None, "embed"), st
 
 
 def _residual_dec(decode_fn, p, x, st, cfg: ModelConfig):
     """One token of such a block against its state."""
+    p = gather_fsdp(p)
     inner = p["ssm"] if "ssm" in p else p["inner"]
     o, st = decode_fn(inner, rms_norm(x, p["ln1"], cfg.norm_eps), st, cfg)
     return x + o, st
@@ -307,7 +321,8 @@ def _head_weights(params, cfg: ModelConfig):
 def _lm_logits(params, h, cfg: ModelConfig):
     if cfg.arch_type == "audio":
         return frontends.codebook_logits(params, h)      # (B,K,S,V)
-    return torch.matmul(h, _head_weights(params, cfg).to(h.dtype))
+    return constrain(matmul(h, _head_weights(params, cfg).to(h.dtype)),
+                     "batch", None, "act_vocab")
 
 
 # ===================================================================== forward
@@ -328,6 +343,7 @@ def forward(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16,
     """
     window = cfg.sliding_window if window is None else window
     x, media_mask = _embed_input(params, batch, cfg, dtype)
+    x = constrain(x, "batch", None, "embed")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     fill = caches is not None
     ck = remat and torch.is_grad_enabled() and not fill
@@ -407,7 +423,8 @@ def forward(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16,
     else:
         raise ValueError(cfg.arch_type)
 
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    h = constrain(rms_norm(x, params["final_norm"], cfg.norm_eps),
+                  "batch", None, "embed")
     logits = _lm_logits(params, h, cfg) if head else None
     return logits, aux_total, (caches, h, media_mask)
 
@@ -474,11 +491,15 @@ def accumulate_grads(params, batch, cfg: ModelConfig, *,
         raise ValueError(f"batch of {n} does not split into {microbatches} "
                          "microbatches")
     bs = n // microbatches
-    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
-                                          device=p.device), params)
+    # keep each microbatch batch-sharded: (mb, bs, ...) with bs on the
+    # batch axes, as the reference splits it
+    split = {k: constrain(reshape(v, microbatches, bs, *v.shape[1:]), None,
+                          "batch", *((None,) * (v.ndim - 1)))
+             for k, v in batch.items()}
+    gsum = tree_map(lambda p: torch.zeros_like(p, dtype=accum_dtype), params)
     losses, partss = [], []
     for i in range(microbatches):
-        mb = {k: v[i * bs:(i + 1) * bs] for k, v in batch.items()}
+        mb = {k: v[i] for k, v in split.items()}
         loss, parts, g = value_and_grad(params, mb, cfg, **kw)
         tree_map(lambda a, b: a.add_(b.to(accum_dtype)), gsum, g)
         del g
@@ -525,12 +546,15 @@ def _mtp_loss(params, h, batch, cfg: ModelConfig, beta: float, *,
     h'_t = W_proj [RMSNorm(h_t); RMSNorm(Emb(label_t))] -> block -> head.
     """
     lbl = batch["labels"]
-    emb = embed(params["embed_tokens"], lbl, h.dtype)     # token t+1 stream
+    emb = constrain(embed(params["embed_tokens"], lbl, h.dtype),  # token t+1
+                    "batch", None, "embed")
     cat = torch.cat([rms_norm(h, params["mtp_ln"], cfg.norm_eps),
                      rms_norm(emb, params["mtp_ln"], cfg.norm_eps)], dim=-1)
-    x = torch.matmul(cat, params["mtp_proj"].to(h.dtype))
+    x = constrain(matmul(cat, params["mtp_proj"].to(h.dtype)),
+                  "batch", None, "embed")
     x, _ = _dense_block_fwd(params["mtp_block"], x, cfg, attn_impl=attn_impl)
-    h2 = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    h2 = constrain(rms_norm(x, params["final_norm"], cfg.norm_eps),
+                   "batch", None, "embed")
     # labels for t+2: shift labels left by one; mask the last position
     lbl2 = torch.cat([lbl[:, 1:], lbl[:, -1:]], dim=1)
     mask = torch.cat([torch.ones_like(lbl[:, 1:], dtype=torch.bool),

@@ -25,6 +25,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.sharding import constrain
+from repro_torch.sharding.rules import (local_region, matmul, reshape,
+                                        split_last)
 
 ICLAMP = 8.0       # clamp on the exponential input gate's pre-activation
 
@@ -66,14 +69,17 @@ def init_mlstm(generator: torch.Generator, cfg: ModelConfig,
 def _mlstm_qkvg(params, a, cfg):
     x, d_m, nh, hd = _mdims(cfg)
     shp = a.shape[:-1]
-    q = torch.matmul(a, params["wq"].to(a.dtype)).reshape(*shp, nh, hd)
-    k = (torch.matmul(a, params["wk"].to(a.dtype)).reshape(*shp, nh, hd)
-         * hd ** -0.5)
-    v = torch.matmul(a, params["wv"].to(a.dtype)).reshape(*shp, nh, hd)
-    gates = torch.matmul(a.float(), params["w_gates"]) + params["b_gates"]
+    heads = (0, len(shp))             # batch and heads stay split on a mesh
+    q = split_last(matmul(a, params["wq"].to(a.dtype)), *shp, nh, hd,
+                   keep=heads)
+    k = split_last(matmul(a, params["wk"].to(a.dtype)), *shp, nh, hd,
+                   keep=heads) * hd ** -0.5
+    v = split_last(matmul(a, params["wv"].to(a.dtype)), *shp, nh, hd,
+                   keep=heads)
+    gates = matmul(a.float(), params["w_gates"]) + params["b_gates"]
     i_raw = torch.clamp(gates[..., :nh], max=ICLAMP)
     logf = _log_sigmoid(gates[..., nh:])                 # log sigmoid(f~)
-    o = torch.sigmoid(torch.matmul(a, params["ogate"].to(a.dtype)))
+    o = torch.sigmoid(matmul(a, params["ogate"].to(a.dtype)))
     return q, k, v, i_raw, logf, o
 
 
@@ -86,26 +92,48 @@ def mlstm_forward(params, xin, cfg: ModelConfig, *, state=None
     pad = (-S) % Q
     nc = (S + pad) // Q
 
-    u = torch.matmul(xin, params["up_proj"].to(xin.dtype))
+    u = matmul(xin, params["up_proj"].to(xin.dtype))
     a, b = u[..., :d_m], u[..., d_m:]
     q, k, v, i_raw, logf, o = _mlstm_qkvg(params, a, cfg)
+    q = constrain(q, "batch", None, "act_heads", None)
     if pad:
         # identity padding: f = 1 (logf = 0), i = exp(-1e9) = 0
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
         i_raw = F.pad(i_raw, (0, 0, 0, pad), value=-1e9)
         logf = F.pad(logf, (0, 0, 0, pad))
 
+    # on a mesh each rank scans its batch rows and heads
+    seq = ("batch", None, "act_heads", None)          # (B, S, nh, hd)
+    gate = ("batch", None, "act_heads")               # (B, S, nh)
+    c_axes = ("batch", "act_heads", None, None)       # (B, nh, hd, hd)
+    n_axes = ("batch", "act_heads", None)             # (B, nh, hd)
+    h, C, n = local_region(
+        lambda *a: _mlstm_scan(*a, Q=Q, nc=nc),
+        (q, k, v, i_raw, logf) + ((None, None) if state is None
+                                  else (state["C"], state["n"])),
+        (seq, seq, seq, gate, gate, c_axes, n_axes), (seq, c_axes, n_axes))
+    h = reshape(h, B, S + pad, d_m)[:, :S] * o
+    h = rms_norm(h, params["norm_w"], cfg.norm_eps)
+    h = h * F.silu(b)
+    out = matmul(h, params["down_proj"].to(xin.dtype))
+    return out, {"C": C, "n": n}
+
+
+def _mlstm_scan(q, k, v, i_raw, logf, C, n, *, Q: int, nc: int):
+    """The chunkwise mLSTM over padded (B, nc * Q, nh, ...) inputs from
+    the state (C, n) (zeros when None).  Returns (h (B, nc * Q, nh, hd),
+    C, n).  Batch rows and heads are independent."""
+    B, _, nh, hd = q.shape
+
     def ch(t):
         return t.reshape(B, nc, Q, *t.shape[2:])
     q_c, k_c, v_c, i_c, lf_c = map(ch, (q, k, v, i_raw, logf))
 
-    if state is None:
+    if C is None:
         C = torch.zeros((B, nh, hd, hd), dtype=torch.float32,
-                        device=xin.device)
-        n = torch.zeros((B, nh, hd), dtype=torch.float32, device=xin.device)
-    else:
-        C, n = state["C"], state["n"]
-    iq = torch.arange(Q, device=xin.device)
+                        device=q.device)
+        n = torch.zeros((B, nh, hd), dtype=torch.float32, device=q.device)
+    iq = torch.arange(Q, device=q.device)
     causal = (iq[:, None] >= iq[None, :])[None, :, :, None]
     hs = []
     for c in range(nc):
@@ -133,11 +161,7 @@ def mlstm_forward(params, xin, cfg: ModelConfig, *, state=None
              + torch.einsum("bqhe,bqhf->bhef", kw, vc).float())
         n = n * torch.exp(cum[:, -1])[..., None] + kw.sum(dim=1).float()
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S + pad, d_m)[:, :S] * o
-    h = rms_norm(h, params["norm_w"], cfg.norm_eps)
-    h = h * F.silu(b)
-    out = torch.matmul(h, params["down_proj"].to(xin.dtype))
-    return out, {"C": C, "n": n}
+    return torch.stack(hs, dim=1).reshape(B, nc * Q, nh, hd), C, n
 
 
 def mlstm_decode(params, xin, state, cfg: ModelConfig
@@ -145,7 +169,7 @@ def mlstm_decode(params, xin, state, cfg: ModelConfig
     """One-token recurrent mLSTM.  xin: (B, 1, d)."""
     x, d_m, nh, hd = _mdims(cfg)
     B = xin.shape[0]
-    u = torch.matmul(xin[:, 0], params["up_proj"].to(xin.dtype))
+    u = matmul(xin[:, 0], params["up_proj"].to(xin.dtype))
     a, b = u[..., :d_m], u[..., d_m:]
     q, k, v, i_raw, logf, o = _mlstm_qkvg(params, a, cfg)  # (B,nh,hd) ...
     i_w = torch.exp(i_raw)                               # (B,nh)
@@ -160,7 +184,7 @@ def mlstm_decode(params, xin, state, cfg: ModelConfig
     h = h.reshape(B, d_m) * o
     h = rms_norm(h, params["norm_w"], cfg.norm_eps)
     h = h * F.silu(b)
-    out = torch.matmul(h, params["down_proj"].to(xin.dtype))
+    out = matmul(h, params["down_proj"].to(xin.dtype))
     return out[:, None], {"C": C, "n": n}
 
 
@@ -229,35 +253,58 @@ def _slstm_step(params, x_t, state, cfg: ModelConfig):
 def _slstm_out(params, h, dtype, cfg: ModelConfig):
     """The block's output from the cell's h: norm, GELU up, down."""
     h = rms_norm(h.to(dtype), params["norm_w"], cfg.norm_eps)
-    u = torch.matmul(h, params["up_proj"].to(dtype))
+    u = matmul(h, params["up_proj"].to(dtype))
     a, g = torch.chunk(u, 2, dim=-1)
     # jax.nn.gelu's default is the tanh approximation
-    return torch.matmul(a * F.gelu(g, approximate="tanh"),
-                        params["down_proj"].to(dtype))
+    return matmul(a * F.gelu(g, approximate="tanh"),
+                  params["down_proj"].to(dtype))
 
 
 def slstm_forward(params, xin, cfg: ModelConfig, *, state=None
                   ) -> Tuple[torch.Tensor, Dict]:
     """x: (B, S, d) -> ((B, S, d), state).  A true recurrent loop over S."""
-    B, S, d = xin.shape
-    if state is None:
-        state = init_slstm_state(cfg, B, device=xin.device)
-    xw = torch.matmul(xin, params["wx"].to(xin.dtype))
+    xw = matmul(xin, params["wx"].to(xin.dtype))
+    h, state = _slstm_run(params, xw, state, cfg)
+    return _slstm_out(params, h, xin.dtype, cfg), state
+
+
+_SLSTM_KEYS = ("c", "n", "h", "m")
+
+
+def _slstm_run(params, xw, state, cfg: ModelConfig):
+    """The recurrence over xw (B, S, 4d) from ``state`` (None: the initial
+    state) -> (h (B, S, d), state); on a mesh each rank runs its batch
+    rows."""
+    row = ("batch", None, None)
+    h, *st = local_region(
+        lambda xw, r, b, *st: _slstm_scan(xw, r, b, st, cfg),
+        (xw, params["r"], params["b"])
+        + tuple(None if state is None else state[k] for k in _SLSTM_KEYS),
+        (row, (None, None, None), (None,)) + (row,) * 4, (row,) * 5)
+    return h, dict(zip(_SLSTM_KEYS, st))
+
+
+def _slstm_scan(xw, r, b, st, cfg: ModelConfig):
+    """The sLSTM recurrence over xw (B, S, 4d) from the state (c, n, h, m)
+    (``init_slstm_state`` when None): (h (B, S, d), c, n, h, m).  Batch
+    rows are independent."""
+    B, S, _ = xw.shape
+    state = (init_slstm_state(cfg, B, device=xw.device) if st[0] is None
+             else dict(zip(_SLSTM_KEYS, st)))
+    p = {"r": r, "b": b}
     hs = []
     for t in range(S):
-        state = _slstm_step(params, xw[:, t], state, cfg)
+        state = _slstm_step(p, xw[:, t], state, cfg)
         hs.append(state["h"])
-    h = torch.stack(hs, dim=1).reshape(B, S, d)
-    return _slstm_out(params, h, xin.dtype, cfg), state
+    h = torch.stack(hs, dim=1).reshape(B, S, -1)
+    return (h,) + tuple(state[k] for k in _SLSTM_KEYS)
 
 
 def slstm_decode(params, xin, state, cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, Dict]:
-    B = xin.shape[0]
-    xw = torch.matmul(xin[:, 0], params["wx"].to(xin.dtype))
-    state = _slstm_step(params, xw, state, cfg)
-    out = _slstm_out(params, state["h"].reshape(B, -1), xin.dtype, cfg)
-    return out[:, None], state
+    xw = matmul(xin, params["wx"].to(xin.dtype))
+    h, state = _slstm_run(params, xw, state, cfg)
+    return _slstm_out(params, h, xin.dtype, cfg), state
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device=None) -> Dict:

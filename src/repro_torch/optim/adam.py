@@ -13,7 +13,7 @@ def adam(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
          weight_decay: float = 0.0) -> Optimizer:
     def init(params):
         def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            return torch.zeros_like(p, dtype=torch.float32)
         dev = tree_leaves(params)[0].device
         return (tree_map(zeros, params), tree_map(zeros, params),
                 torch.zeros((), dtype=torch.int32, device=dev))

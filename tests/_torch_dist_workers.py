@@ -139,3 +139,50 @@ def outer_sync(rank, world, init, out_dir, anchor, locals_, cfg_kw):
         checkpoint.save(os.path.join(out_dir, f"rank{rank}.npz"), out)
     finally:
         dist.destroy_process_group()
+
+
+def sharded_lm(rank, world, init, out_dir, arch, params, batch, lr):
+    """A ``.reduced()`` LM's forward and one train step (SGD) on a
+    (2, world / 2) ``("data", "model")`` mesh under ``launch.mesh``'s
+    rules: params laid out by ``pspec_tree``, the batch split over
+    ``data``.  Rank 0 writes the gathered logits, loss, and updated
+    params."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_from_numpy, tree_map
+    from repro_torch.sharding import placements, use_rules
+    from repro_torch.sharding.rules import P
+
+    _join(rank, world, init)
+    try:
+        cfg = get_config(arch).reduced()
+        mesh = init_device_mesh("cpu", (2, world // 2),
+                                mesh_dim_names=("data", "model"))
+        rules = mesh_mod.make_rules(mesh)
+        p = tree_from_numpy(params)
+        specs = rules.pspec_tree(p)
+        dp = tree_map(lambda t, s: distribute_tensor(
+            t, mesh, placements(s, mesh)), p, specs)
+        db = {k: distribute_tensor(torch.from_numpy(v), mesh, placements(
+            P("data"), mesh)) for k, v in batch.items()}
+        opt = optim.sgd()
+        step = tf.make_train_step(cfg, opt, dtype=torch.float32,
+                                  microbatches=2)
+        with use_rules(rules), implicit_replication():
+            logits, _, _ = tf.forward(dp, db, cfg, dtype=torch.float32,
+                                      remat=False, attn_impl="torch")
+            logits = logits.full_tensor()
+            dp, _, m = step(dp, opt.init(dp), db, lr)
+            loss = m["loss"].full_tensor()
+            new = tree_map(lambda t: t.full_tensor(), dp)
+        if rank == 0:
+            checkpoint.save(os.path.join(out_dir, f"rank{rank}.npz"),
+                            {"logits": logits, "loss": loss, "params": new})
+    finally:
+        dist.destroy_process_group()

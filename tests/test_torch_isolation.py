@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or the JAX package, so the port runs on a
-machine that has neither."""
+"""The port stands alone: no module of ``src/repro_torch/``, no
+``examples/torch_*.py`` and not ``chip_smoke.py`` imports JAX or the JAX
+package, so the port runs on a machine that has neither."""
 import ast
 import os
 import pathlib
@@ -17,6 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     return sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
+        sorted((REPO / "examples").glob("torch_*.py")) + \
         [REPO / "chip_smoke.py"]
 
 
@@ -40,10 +41,15 @@ def test_port_sources_import_neither_jax_nor_repro():
 def test_importing_the_serving_path_loads_no_jax():
     code = ("import sys, repro_torch.serving, repro_torch.launch.serve, "
             "repro_torch.launch.lm_steps, repro_torch.models.transformer, "
-            "repro_torch.launch.train, repro_torch.core.fedavg; "
+            "repro_torch.launch.train, repro_torch.core.fedavg, "
+            "repro_torch.core.sarima, repro_torch.sharding, "
+            "repro_torch.launch.dryrun, repro_torch.launch.costmodel, "
+            "repro_torch.launch.roofline, repro_torch.launch.mesh; "
+            "import torch.distributed as dist; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
-            "print(bad); sys.exit(1 if bad else 0)")
+            "print(bad, dist.is_initialized()); "
+            "sys.exit(1 if bad or dist.is_initialized() else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
