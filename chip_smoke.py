@@ -44,7 +44,11 @@ dry-runs qwen3-14b at every shape on the fake 16 x 16 production mesh and
 deepseek-v3-671b's train step (cut in depth) on 2 x 16 x 16 (12b, host
 processes started after phase 10), runs phase 5's prefill with DTensor
 params on one NCCL rank through the flash kernel, bit-equal to phase 5
-(12c), and ends with one JSON status line.
+(12c), runs flcheck on the card (phase 13: the lint of the port's tree,
+the round's hot-path guards at train-lstm's shape on the layer kernel,
+the taint proofs of the local round and the semi-sync dispatch, the cost
+audit against the committed baseline), and ends with one JSON status
+line.
 
     python3 chip_smoke.py [--seed N]
 
@@ -2992,6 +2996,135 @@ def sharded_prefill(seed, want_logits):
     return counts["flash_attention"]
 
 
+# -------------------------------------------------------------- phase 13
+# flcheck on the card (src/repro_torch/analysis/, tools/flcheck_torch):
+# (a) the AST lint of the port's tree; (b) the round's hot-path guards at
+# train-lstm's shape (ForecasterConfig(), M = 100 clients, B = 64, the
+# kernel route; the local steps of a round cut 411 -> FLCHECK_STEPS), 3
+# rounds after a warm-up, under the reference's guard stack (clip, noise,
+# 4-bit quantize) and under train-lstm-dp's (clip 1.0, noise 0.5, the 8-bit
+# ring, secure aggregation); (c) the taint proofs of the local round and of
+# the semi-sync dispatch under the full stack at M = 100 on the kernel
+# route; (d) the cost audit against the committed baseline (its mesh paths
+# on 8 gloo ranks that the CLI spawns on the card), on this machine's
+# torch.  (a) and (d) run as processes of their own while (b) and (c) run
+# here.
+FLCHECK_M, FLCHECK_B, FLCHECK_STEPS, FLCHECK_ROUNDS = 100, 64, 8, 3
+FLCHECK_LIMIT_S = 600
+BASELINE = "src/repro_torch/analysis/baselines/round_costs.json"
+
+
+def _flcheck(*args):
+    return subprocess.Popen(
+        [sys.executable, str(ROOT / "tools" / "flcheck_torch"), *args],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def _finish(proc, t0, label):
+    try:
+        out, _ = proc.communicate(timeout=max(
+            FLCHECK_LIMIT_S - (time.monotonic() - t0), 1))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(proc.returncode == 0,
+            f"13 {label}: exit {proc.returncode}\n{out[-4000:]}")
+    return out, time.monotonic() - t0
+
+
+def flcheck_slice(seed):
+    """Phase 13: flcheck on the card; one JSON line with each part's
+    result and wall.  The launch counts are set to 0 just before (b) and
+    (c), the main path of this phase, and read just after: the guarded
+    rounds and the traced rounds launch the LSTM layer kernel.  Returns
+    those launches."""
+    import re
+
+    import torch
+    from repro_torch.analysis import recompile, taint
+    from repro_torch.configs.base import ForecasterConfig, TransformConfig
+    from repro_torch.kernels import ops
+
+    t0 = time.monotonic()
+    lint = _flcheck(str(SRC / "repro_torch"))
+    cost = _flcheck("--no-lint", "--cost", "--baseline", BASELINE)
+    fcfg = ForecasterConfig()
+    out = {"shape": {"M": FLCHECK_M, "B": FLCHECK_B,
+                     "local_steps": FLCHECK_STEPS, "cfg": "ForecasterConfig()",
+                     "cell_impl": "kernel"}}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    # (b) the hot-path guards
+    guards = {}
+    for name, tcfg, scfg in (
+            ("clip_noise_q4", None, None),
+            ("dp_ring8_secure", taint.full_stack(), taint.secure())):
+        t1 = time.monotonic()
+        rep, err, launched = recompile.check_round_hot_path(
+            steps=FLCHECK_ROUNDS, device="cuda", fcfg=fcfg, m=FLCHECK_M,
+            batch=FLCHECK_B, local_steps=FLCHECK_STEPS, n_win=256,
+            tcfg=tcfg, scfg=scfg)
+        require(rep.ok, f"13b {name}: {rep.render()}")
+        require(err is None, f"13b {name}: host read or sync: {err}")
+        require(launched > 0, f"13b {name}: no lstm_cell launch inside the "
+                "guarded round")
+        guards[name] = {"new_per_round": rep.new_entries_per_step,
+                        "by_kind": rep.by_kind, "host_reads": 0,
+                        "sync_debug_mode": "error",
+                        "launches_in_guard": launched,
+                        "wall_s": time.monotonic() - t1}
+    out["hot_path"] = guards
+    # (c) the taint proofs on the card
+    proofs = {}
+    for topo in ("vmap", "semi_sync"):
+        t1 = time.monotonic()
+        rep = taint.verify_pipeline(topo, taint.full_stack(), taint.secure(),
+                                    fcfg=fcfg, device="cuda", m=FLCHECK_M)
+        require(rep.proved and not rep.violations,
+                f"13c {topo}: {rep.render()}")
+        require(rep.launches_before_source > 0
+                and rep.launches_after_source == 0,
+                f"13c {topo}: launches before / after the source "
+                f"{rep.launches_before_source} / "
+                f"{rep.launches_after_source}")
+        proofs[topo] = {"required": sorted(rep.required),
+                        "sources": rep.sources, "checked": rep.checked,
+                        "violations": len(rep.violations),
+                        "launches_before_source":
+                            rep.launches_before_source,
+                        "launches_after_source": rep.launches_after_source,
+                        "wall_s": time.monotonic() - t1}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    require(counts["lstm_cell"] > 0 and counts["gru_cell"] == 0
+            and counts["flash_attention"] == 0,
+            f"13 launch counts {counts}")
+    out["taint"] = proofs
+    # (a) and (d), read
+    text, wall = _finish(lint, t0, "lint")
+    found = re.search(r"flcheck lint: (\d+) files, (\d+) findings, "
+                      r"(\d+) suppressed", text)
+    require(found is not None and found.group(2) == "0",
+            f"13a lint: {text[-2000:]}")
+    out["lint"] = {"files": int(found.group(1)),
+                   "findings": int(found.group(2)),
+                   "suppressed": int(found.group(3)), "wall_s": wall}
+    text, wall = _finish(cost, t0, "cost")
+    drift = [ln for ln in text.splitlines()
+             if "DRIFT" in ln or "FATAL" in ln or " note: " in ln]
+    require(not drift and "report matches baseline" in text,
+            "13d cost: " + "\n".join(drift or text.splitlines()[-20:]))
+    out["cost"] = {"baseline": BASELINE, "diff": drift,
+                   "audits": sum(" wire=" in ln for ln in text.splitlines()),
+                   "torch": torch.__version__, "wall_s": wall}
+    out["launches"] = counts
+    out["wall_s"] = time.monotonic() - t0
+    emit({"phase": "flcheck", **out})
+    return counts["lstm_cell"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3127,6 +3260,10 @@ def main():
 
     # ---- phase 12b: read the production-mesh dry runs
     finish_production_dryruns(production)
+
+    # ---- phase 13: flcheck on the card (lint, hot-path guards, taint,
+    # the cost audit against the committed baseline)
+    lstm_more["flcheck"] = flcheck_slice(args.seed)
 
     replaces = {"lstm_cell": "src/repro/kernels/lstm_cell.py:24",
                 "gru_cell": "src/repro/kernels/gru_cell.py:17",

@@ -1,7 +1,15 @@
 from repro_torch.configs.base import (INPUT_SHAPES, SHAPES_BY_NAME,
-                                      FLConfig, ForecasterConfig, InputShape,
-                                      ModelConfig)
-from repro_torch.configs.registry import ARCH_IDS, get_config
+                                      AggregationConfig, ClientOptConfig,
+                                      FLConfig, ForecasterConfig,
+                                      FrontendConfig, InputShape, MLAConfig,
+                                      ModelConfig, MoEConfig, SamplingConfig,
+                                      ServerOptConfig, SSMConfig,
+                                      TransformConfig, XLSTMConfig)
+from repro_torch.configs.registry import ARCH_IDS, all_configs, get_config
 
-__all__ = ["ARCH_IDS", "FLConfig", "ForecasterConfig", "INPUT_SHAPES", "InputShape",
-           "ModelConfig", "SHAPES_BY_NAME", "get_config"]
+__all__ = ["AggregationConfig", "ClientOptConfig", "FLConfig",
+           "ForecasterConfig", "FrontendConfig", "InputShape", "INPUT_SHAPES",
+           "MLAConfig", "ModelConfig", "MoEConfig", "SamplingConfig",
+           "ServerOptConfig", "SHAPES_BY_NAME", "SSMConfig",
+           "TransformConfig", "XLSTMConfig", "ARCH_IDS", "all_configs",
+           "get_config"]

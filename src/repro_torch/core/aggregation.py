@@ -46,6 +46,7 @@ from typing import Dict, Optional, Protocol, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis import taint
 from repro_torch.configs.base import AggregationConfig, FLConfig
 
 
@@ -134,7 +135,9 @@ class LocalAggregator:
         return ()
 
     def reduce(self, x):
-        return x
+        # the identity, but still THE cross-client boundary of the local
+        # round: flcheck checks sanitization here (production no-op)
+        return taint.boundary(x)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -148,7 +151,7 @@ class FlatAggregator:
         return (self.client_axis,)
 
     def reduce(self, x):
-        return self.mesh.all_reduce(x, self.client_axis)
+        return self.mesh.all_reduce(taint.boundary(x), self.client_axis)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -165,7 +168,8 @@ class HierarchicalAggregator:
         return (self.region_axis, self.client_axis)
 
     def reduce(self, x):
-        regional = self.mesh.all_reduce(x, self.client_axis)  # edge->region
+        regional = self.mesh.all_reduce(taint.boundary(x),
+                                        self.client_axis)    # edge->region
         return self.mesh.all_reduce(regional, self.region_axis)  # ->cloud
 
 

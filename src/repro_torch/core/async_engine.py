@@ -58,6 +58,7 @@ from typing import Any, Callable, List
 import numpy as np
 import torch
 
+from repro_torch.analysis import taint as taint_mod
 from repro_torch.configs.base import (AsyncConfig, ForecasterConfig,
                                       SecureAggConfig, TransformConfig)
 from repro_torch.core import secure_agg as secure_agg_mod
@@ -101,6 +102,10 @@ def client_deltas(params, x, y, batch_idx, keys, lr, prox_mu,
     from repro_torch.core import fedavg as fedavg_mod
     locals_, client_loss = local_update(params, x, y, batch_idx, lr, cfg,
                                         loss, cell_impl, prox_mu)
+    # taint source (production no-op); the returned deltas ARE the uploads
+    # the server's straggler buffer holds, so this function's exit is the
+    # shard boundary flcheck checks on the semi-sync path
+    locals_ = taint_mod.tag_private(locals_)
     with torch.no_grad():
         deltas = tree_map(lambda l, g: l - g, locals_, params)
         stack = transforms_mod.make_stack(tcfg, scfg)
@@ -108,7 +113,7 @@ def client_deltas(params, x, y, batch_idx, keys, lr, prox_mu,
             deltas = fedavg_mod.apply_stack(stack, deltas, keys, slots=slots,
                                             w_full=w_full,
                                             round_key=round_key)
-    return deltas, client_loss
+    return taint_mod.boundary(deltas), client_loss
 
 
 def _gather_dispatch(mesh, deltas, closs):

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as checkpoint_mod
+from repro_torch.analysis import taint as taint_mod
 from repro_torch.configs.base import (FLConfig, ForecasterConfig,
                                       SecureAggConfig, TransformConfig)
 from repro_torch.core import aggregation as aggregation_mod
@@ -193,11 +194,40 @@ def pipeline_round(params, x, y, batch_idx, weights, keys, lr, prox_mu,
     the caller (``RoundEngine.step``)."""
     locals_, client_loss = local_update(params, x, y, batch_idx, lr, cfg,
                                         loss, cell_impl, prox_mu)
+    # taint source (production no-op): the local models, and the deltas
+    # made from them, are the private values flcheck follows to the
+    # aggregation boundary.  client_loss is NOT tagged: the weighted scalar
+    # loss release is the accepted disclosure
+    locals_ = taint_mod.tag_private(locals_)
     with torch.no_grad():
         return transform_and_aggregate(
             params, locals_, client_loss, weights, keys,
             transforms_mod.make_stack(tcfg, scfg), round_key, agg=agg,
             slots=slots, w_full=w_full)
+
+
+def fedavg_round(params, x, y, batch_idx, lr, cfg: ForecasterConfig,
+                 loss: Callable, cell_impl: str = "kernel"):
+    """One uniform-FedAvg round over M clients: every client's local update,
+    then the plain mean of the local models.  x: (M, n_win, L, 1); y: (M,
+    n_win, H); batch_idx: (M, steps, B).  Returns ``(w_agg, mean client
+    loss)``; :func:`pipeline_round` with unit weights and the identity
+    stack."""
+    ones = torch.ones((x.shape[0],), dtype=torch.float32, device=x.device)
+    return pipeline_round(params, x, y, batch_idx, ones, None, lr, 0.0, cfg,
+                          loss, cell_impl=cell_impl)
+
+
+def engine_round(params, x, y, batch_idx, weights, lr, prox_mu,
+                 cfg: ForecasterConfig, loss: Callable,
+                 cell_impl: str = "kernel"):
+    """Weighted aggregation with optional FedProx clients: ``weights`` (M,)
+    are the aggregation weights (sample counts; ones for uniform),
+    ``prox_mu`` the proximal strength (0 = plain local SGD).  Returns
+    ``(w_agg, weighted mean client loss)``; the server step is the
+    caller's.  :func:`pipeline_round` with the identity stack."""
+    return pipeline_round(params, x, y, batch_idx, weights, None, lr,
+                          prox_mu, cfg, loss, cell_impl=cell_impl)
 
 
 # ------------------------------------------------------------- round engine
@@ -214,7 +244,9 @@ class RoundEngine:
     ``cell_impl`` picks the forward of every local step: ``"kernel"`` (the
     CUDA layer kernels, the default) or ``"torch"`` (the plain cells).
     ``device`` defaults to the card and raises without one; ``"cpu"`` runs
-    the plain versions, only when the caller asks.
+    the plain versions, only when the caller asks.  ``audited_payload``
+    (the per-client upload bytes of flcheck's cost audit,
+    ``analysis/costs.py``) replaces the latency model's byte formula.
 
     ``mesh`` (``aggregation.make_mesh``): every rank of the mesh builds the
     same engine and calls ``step`` with the same global round inputs; each
@@ -226,7 +258,8 @@ class RoundEngine:
 
     def __init__(self, fcfg: ForecasterConfig, flcfg: FLConfig, *,
                  loss: Optional[Callable] = None, mesh=None,
-                 cell_impl: str = "kernel", device=None):
+                 cell_impl: str = "kernel", device=None,
+                 audited_payload: Optional[float] = None):
         if cell_impl not in forecaster.CELL_IMPLS:
             raise ValueError(f"cell_impl={cell_impl!r}; pick from "
                              f"{forecaster.CELL_IMPLS}")
@@ -259,7 +292,8 @@ class RoundEngine:
         self.async_cfg = flcfg.async_config
         self.latency = latency_mod.LatencyModel(
             self.async_cfg.latency, flcfg.seed,
-            latency_mod.payload_bytes(fcfg.num_params(), flcfg.quantize_bits),
+            latency_mod.payload_bytes(fcfg.num_params(), flcfg.quantize_bits,
+                                      audited_bytes=audited_payload),
             churn=flcfg.churn)
         self.async_state = async_engine.SemiSyncState()
         if self.async_cfg.mode == "semi_sync":

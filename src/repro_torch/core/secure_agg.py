@@ -17,17 +17,18 @@ uniform over the ring and the unmasked sum comes back bit for bit.  Without
 a quantizer the masks are Gaussian with scale ``mask_std`` on the weighted
 float upload, and cancel up to float rounding.
 
-Pairs are gated on both ends having ``w > 0`` and weight-0 slots (padding
-duplicates) upload zero.  The pair key is ``fold_in(fold_in(fold_in(
+Pairs are gated on both ends having ``w > 0`` (a pair with a weight-0
+slot, a padding duplicate, is drawn and multiplied by zero) and weight-0
+slots upload zero.  The pair key is ``fold_in(fold_in(fold_in(
 round_key, _PAIR_DOMAIN), lo), hi)`` and the per-leaf draws come from
 ``split(pair_key, n_leaves)``, the JAX package's keys bit for bit
 (``core/prng.py``), so the port's masks are the reference's.
 
 The JAX package scans all M slots for every client (each pair drawn
 twice, once at each end).  Here a draw depends only on ``(lo, hi)``, so
-each real pair is drawn once, in chunks that bound the temporaries, and
-lands with ``+1`` at ``lo`` and ``-1`` at ``hi`` through one product with
-a (pairs, M) sign matrix.  On the ring path the masks are integers whose
+each pair is drawn once, in chunks that bound the temporaries, and lands
+with ``+gate`` at ``lo`` and ``-gate`` at ``hi`` through one product with a
+(pairs, M) sign matrix.  On the ring path the masks are integers whose
 sums stay below 2^24, so the order of the sum does not change a bit; on
 the float path it does (``tests/test_torch_privacy.py`` states the bound).
 """
@@ -38,6 +39,7 @@ from typing import ClassVar, NamedTuple
 
 import torch
 
+from repro_torch.analysis import taint
 from repro_torch.configs.base import SecureAggConfig
 from repro_torch.core import prng
 from repro_torch.core import transforms as transforms_mod
@@ -89,10 +91,10 @@ class PairwiseMasker:
         leaves = sorted_leaves(like)
         dev = weights.device
         mc = weights.shape[0]
-        real = torch.nonzero(weights > 0).flatten()
-        lo, hi = torch.triu_indices(real.numel(), real.numel(), 1,
-                                    device=dev)
-        lo, hi = real[lo], real[hi]
+        # every pair of the cohort, gated on both ends being real: the
+        # real slots' count never comes to the host (no device sync)
+        real = (weights > 0).to(torch.float32)
+        lo, hi = torch.triu_indices(mc, mc, 1, device=dev)
         base = prng.fold_in(round_key, _PAIR_DOMAIN)
         masks = [torch.zeros((mc,) + x.shape[1:], dtype=x.dtype, device=dev)
                  for x in leaves]
@@ -109,8 +111,9 @@ class PairwiseMasker:
             sign = torch.zeros((plo.numel(), mc), dtype=torch.float32,
                                device=dev)
             rows = torch.arange(plo.numel(), device=dev)
-            sign[rows, plo] = 1.0
-            sign[rows, phi] = -1.0
+            gate = real[plo] * real[phi]
+            sign[rows, plo] = gate
+            sign[rows, phi] = -gate
             for i, x in enumerate(leaves):
                 shape = x.shape[1:]
                 if ring:
@@ -139,7 +142,12 @@ class PairwiseMasker:
             else:
                 # weighted-contribution masking: mask w_i * delta_i
                 out.append(r * (transforms_mod._per_client(wi, x) * x + mk))
-        return unflatten_sorted(delta, out)
+        # taint marker (production no-op).  On the ring the declared wire
+        # STAYS the quantizer's int<b>+scale (masked coordinates are b-bit
+        # ring symbols); the float path ships fp32, as its input
+        return taint.declassify(
+            unflatten_sorted(delta, out), "mask",
+            wire=f"int{self.bits}+scale" if self.bits > 0 else "float32")
 
 
 def mask_contribution(masker: PairwiseMasker, like, slot, weights,

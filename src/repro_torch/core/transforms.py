@@ -34,15 +34,27 @@ product with its float32 reciprocal; the port keeps the division.
 from __future__ import annotations
 
 import dataclasses
-from typing import ClassVar, Optional, Tuple
+from typing import ClassVar, Optional, Protocol, Tuple
 
 import torch
 
+from repro_torch.analysis import taint
 from repro_torch.configs.base import SecureAggConfig, TransformConfig
 from repro_torch.core import prng
 from repro_torch.models.layers import sorted_leaves, unflatten_sorted
 
 _TINY = torch.finfo(torch.float32).tiny
+
+
+class DeltaTransform(Protocol):
+    """One delta transform: ``(client-stacked delta tree, (M, 2) keys) ->
+    delta tree`` (cohort-aware stages also take the ``CohortContext``).
+    ``tag`` is the transform's STABLE key-derivation id (see
+    :class:`TransformStack`): unique per transform kind, never reused."""
+
+    tag: ClassVar[int]
+
+    def __call__(self, delta, keys): ...
 
 
 def _per_client(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -114,8 +126,10 @@ class L2Clip:
         norm = global_l2_norm(delta)
         c = torch.full_like(norm, self.clip_norm)
         factor = torch.clamp_max(c / torch.clamp_min(norm, 1e-12), 1.0)
-        return unflatten_sorted(delta, [x * _per_client(factor, x)
-                                        for x in sorted_leaves(delta)])
+        # taint marker (production no-op): this stage's flcheck label
+        return taint.declassify(unflatten_sorted(
+            delta, [x * _per_client(factor, x)
+                    for x in sorted_leaves(delta)]), "clip")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,9 +141,9 @@ class GaussianNoise:
     def __call__(self, delta, keys):
         leaves = sorted_leaves(delta)
         ks = prng.split(keys, len(leaves))      # (M, n_leaves, 2)
-        return unflatten_sorted(delta, [
+        return taint.declassify(unflatten_sorted(delta, [
             x + self.sigma * prng.normal(ks[:, i], x.shape[1:])
-            for i, x in enumerate(leaves)])
+            for i, x in enumerate(leaves)]), "noise")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,7 +194,12 @@ class StochasticQuantize:
                 u = prng.uniform(ks[:, i], x.shape[1:])
                 q = torch.clamp(torch.floor(x / safe + u), -levels, levels)
                 out.append((q * safe).to(x.dtype))
-        return unflatten_sorted(delta, out)
+        # taint marker (production no-op).  The wire declaration is what
+        # the level-3 cost auditor reads off the boundary: these values
+        # STAND FOR an int<bits> grid plus one fp32 scale a leaf on the
+        # real uplink (adaptive: dequantized floats; ring: the integers)
+        return taint.declassify(unflatten_sorted(delta, out), "quantize",
+                                wire=f"int{self.bits}+scale")
 
 
 @dataclasses.dataclass(frozen=True)

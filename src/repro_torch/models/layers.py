@@ -23,6 +23,7 @@ from repro_torch.sharding.rules import matmul, replicated, whole_dim
 def seeded_generator(seed: int, *stream: int) -> torch.Generator:
     """A CPU ``torch.Generator`` seeded injectively from (seed, *stream)."""
     state = np.random.SeedSequence([seed, *stream]).generate_state(2)
+    # flcheck: disable=FLC003 (packs SeedSequence's two 32-bit output words into one 64-bit seed; the mixing of seed and stream ids is SeedSequence's, injective)
     return torch.Generator().manual_seed(
         int(state[0]) << 32 | int(state[1]))
 

@@ -13,12 +13,14 @@ from repro_torch.serving.engine import (EngineStats, FlushStats,
                                         ForecastRequest, ServingEngine,
                                         bucket_for, bucket_ladder)
 from repro_torch.serving.registry import (GLOBAL_SLOT, ModelHandle,
-                                          ModelRegistry, resolve_device)
+                                          ModelRegistry, dequantize_params,
+                                          quantize_params, resolve_device)
 from repro_torch.serving.router import ClusterRouter, daily_summary_of
 
 __all__ = [
     "ServingEngine", "ForecastRequest", "FlushStats", "EngineStats",
     "bucket_for", "bucket_ladder",
     "ModelRegistry", "ModelHandle", "GLOBAL_SLOT", "resolve_device",
+    "quantize_params", "dequantize_params",
     "ClusterRouter", "daily_summary_of",
 ]

@@ -235,6 +235,7 @@ class ServingEngine:
         last = self._last_gen.get(slot)
         if last is not None and handle.generation != last:
             self.stats.swaps_seen += 1
+        # flcheck: disable=FLC008 (one int per routed slot; slots come from the registry's fixed cluster universe, not from request traffic)
         self._last_gen[slot] = handle.generation
         out = []
         while q:

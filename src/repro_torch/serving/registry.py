@@ -165,6 +165,7 @@ class ModelRegistry:
                 raise ValueError(
                     f"stale publish for slot {slot!r}: generation "
                     f"{handle.generation} <= live {cur.generation}")
+            # flcheck: disable=FLC008 (slot universe = cluster ids from the FL config, fixed per deployment; hot-swap REPLACES handles, never adds keys past the cluster count)
             self._slots[slot] = handle
         return handle
 
@@ -243,5 +244,6 @@ class ModelRegistry:
         # keeps the watermark monotone
         with self._lock:
             prev = self._poll_gen.get(str(path_glob), -1)
+            # flcheck: disable=FLC008 (one watermark per polled glob pattern; the glob set is static config, not per-request traffic)
             self._poll_gen[str(path_glob)] = max(gen, prev)
         return updated

@@ -186,3 +186,50 @@ def sharded_lm(rank, world, init, out_dir, arch, params, batch, lr):
                             {"logits": logits, "loss": loss, "params": new})
     finally:
         dist.destroy_process_group()
+
+
+def _mask_after_reduce():
+    """A broken round on the flat mesh: the deltas are summed over the
+    ranks FIRST and clipped after.  The masks of a real masker would still
+    cancel in the sum, so no numeric pin catches it; the taint proof
+    must."""
+    from repro_torch.analysis import taint
+    from repro_torch.configs.base import TransformConfig
+    from repro_torch.core import prng, transforms
+    from repro_torch.models.layers import seeded_generator
+
+    mesh = aggregation.make_mesh()
+    stack = transforms.make_stack(TransformConfig(clip_norm=1.0))
+    rank = dist.get_rank()
+    g = seeded_generator(rank, 1)
+
+    def broken(deltas, keys):
+        deltas = taint.tag_private(deltas)
+        summed = {k: mesh.all_reduce(v, "clients")
+                  for k, v in deltas.items()}
+        return stack(summed, keys)
+
+    return taint.analyze(broken, frozenset({"clip"}),
+                         {"w": torch.randn((1, 3), generator=g)},
+                         prng.fold_in(prng.PRNGKey(rank), torch.arange(1)))
+
+
+def taint_proofs(rank, world, init, out_dir, device):
+    """This rank's taint reports of the mesh topologies: the flat round
+    under the full stack and clip-only, the hierarchical 2 x 4 round under
+    the full stack, and a round that reduces before it clips; pickled to
+    ``<out_dir>/rank<r>.pkl``."""
+    import pickle
+
+    from repro_torch.analysis import taint
+
+    _join(rank, world, init)
+    try:
+        cases = [("flat", taint.full_stack(), taint.secure()),
+                 ("flat", taint.clip_only(), None),
+                 ("hier", taint.full_stack(), taint.secure())]
+        out = taint.mesh_proofs(cases, device) + [_mask_after_reduce()]
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch/``, no
-``examples/torch_*.py`` and not ``chip_smoke.py`` imports JAX or the JAX
-package, so the port runs on a machine that has neither."""
+``examples/torch_*.py``, not ``tools/flcheck_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package, so the port runs on a
+machine that has neither."""
 import ast
 import os
 import pathlib
@@ -18,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _port_files():
     return sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
         sorted((REPO / "examples").glob("torch_*.py")) + \
-        [REPO / "chip_smoke.py"]
+        [REPO / "tools" / "flcheck_torch", REPO / "chip_smoke.py"]
 
 
 def _imported_roots(path):
@@ -44,7 +45,9 @@ def test_importing_the_serving_path_loads_no_jax():
             "repro_torch.launch.train, repro_torch.core.fedavg, "
             "repro_torch.core.sarima, repro_torch.sharding, "
             "repro_torch.launch.dryrun, repro_torch.launch.costmodel, "
-            "repro_torch.launch.roofline, repro_torch.launch.mesh; "
+            "repro_torch.launch.roofline, repro_torch.launch.mesh, "
+            "repro_torch.analysis.cli, repro_torch.analysis.costs, "
+            "repro_torch.analysis.recompile, repro_torch.analysis.taint; "
             "import torch.distributed as dist; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
