@@ -40,11 +40,16 @@ pods of qwen1.5-0.5b), runs the paper's examples
 under semi-sync with the privacy stack, the serving demo) on the layer
 kernel (phase 11), holds the dry run's memory model against the card on
 a 1 x 1 mesh (phase 12a: phase 10's train step and phase 5's prefill),
-dry-runs qwen3-14b at every shape on the fake 16 x 16 production mesh and
-deepseek-v3-671b's train step (cut in depth) on 2 x 16 x 16 (12b, host
-processes started after phase 10), runs phase 5's prefill with DTensor
-params on one NCCL rank through the flash kernel, bit-equal to phase 5
-(12c), runs flcheck on the card (phase 13: the lint of the port's tree,
+dry-runs qwen3-14b at every shape, qwen1.5-0.5b's train step (which must
+fit the card) and xlstm-1.3b's train step and 32k prefill on the fake
+16 x 16 production mesh, and deepseek-v3-671b's train step at its full
+depth and 16 microbatches on 2 x 16 x 16 (12b, host processes started
+after phase 10; the model's loops under the trip-count rule), runs phase
+5's prefill with DTensor params on one NCCL rank through the flash kernel,
+bit-equal to phase 5 (12c), runs phase 10's train step with DTensor
+params on one NCCL rank, its d and vocabulary split over the one rank (the
+vocab-parallel CE, the norms' all-reduced statistics), its first loss held
+to phase 10's (12d), runs flcheck on the card (phase 13: the lint of the port's tree,
 the round's hot-path guards at train-lstm's shape on the layer kernel,
 the taint proofs of the local round and the semi-sync dispatch, the cost
 audit against the committed baseline), and ends with one JSON status
@@ -2268,6 +2273,9 @@ def pacing_slice(seed):
 # rose 12.30 -> 25.44 in 3 steps (PERF.md §6); 1e-5 moves them ~4 %
 TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "qwen3-14b", 4, 8, 4096
 TRAIN_STEPS, TRAIN_LR = 3, 1e-5
+# 12d: the same step on DTensor params (one NCCL rank), 1 + 2 steps; its
+# first loss against 10a's: the CE's logsumexp is summed in another order
+TRAIN_DTENSOR_STEPS, TRAIN_DTENSOR_RTOL = 3, 1e-5
 # (a2) bf16 against fp32: the same model at 1 layer, one microbatch of
 # 2 x 4096, from the same (bf16) weights; the bf16 kernel tolerance
 TRAIN_BF16_TOL = 2e-2
@@ -2564,7 +2572,7 @@ def lm_train_slice(seed):
     into an fp32 accumulator, remat, the plain attention route, the update
     in place), no flash launch; then (a2) bf16 against fp32, (b) every
     family's step against the CPU, (c) local SGD.  Prints one JSON line a
-    part; returns the flash launches of the main path (0)."""
+    part; returns the main path's line (its flash launches: 0)."""
     main_path = _train_main_path(seed)
     emit({"phase": "lm_train", "part": "main", **main_path})
     emit({"phase": "lm_train", "part": "bf16_vs_fp32",
@@ -2572,7 +2580,7 @@ def lm_train_slice(seed):
     emit({"phase": "lm_train", "part": "families",
           "archs": _train_families(seed)})
     emit({"phase": "lm_train", "part": "local_sgd", **_train_local_sgd(seed)})
-    return main_path["flash_launches"], main_path["peak_bytes"]
+    return main_path
 
 
 def _device_profile(run, steps):
@@ -2748,18 +2756,20 @@ def examples_slice(seed):
 # DRYRUN_MEM_TOL of the measured peak (PERF.md says why this bound)
 DRYRUN_MEM_TOL = 0.05
 DRYRUN_DIR = ROOT / "build" / "dryrun_smoke"
-# 12b: the production mesh, 16 x 16 for qwen3-14b at every shape, and
-# deepseek-v3-671b's train_4k (the reference's Adafactor case) on
-# 2 x 16 x 16, its depth cut 61 -> 5 (its 3 dense layers and 2 MoE): at
-# full depth its 16 microbatches take the eager dry run past the script's
-# time (the full grid runs through the CLI, PERF.md); at 8 microbatches,
-# so that a microbatch's 32 sequences fill the 32-way ("pod", "data")
-# batch split (at 16, DTensor's view of the flattened tokens goes wrong:
-# ROADMAP queue C); every run a process of its own, read within the limit
+# 12b: the production mesh, 16 x 16 for qwen3-14b at every shape; the
+# configurations the eager dry run could not do before the trip-count rule
+# and the sharded CE and norms (ROADMAP C2, C3): qwen1.5-0.5b train_4k
+# (which must fit the card), xlstm-1.3b train_4k and prefill_32k (4,096 and
+# 32,768 sLSTM steps); and deepseek-v3-671b's train_4k (the reference's
+# Adafactor case) on 2 x 16 x 16 at its own depth (61 layers) and
+# MICROBATCHES (16); every run a process of its own, read within the limit
 PRODUCTION_RUNS = [("qwen3-14b", shape, []) for shape in
                    ("train_4k", "prefill_32k", "decode_32k", "long_500k")] \
-    + [("deepseek-v3-671b", "train_4k",
-        ["--multi-pod", "--layers", "5", "--microbatches", "8"])]
+    + [("qwen1.5-0.5b", "train_4k", []),
+       ("xlstm-1.3b", "train_4k", []), ("xlstm-1.3b", "prefill_32k", []),
+       ("deepseek-v3-671b", "train_4k", ["--multi-pod"])]
+# the one that must fit the card's HBM (mesh.HBM_BYTES)
+PRODUCTION_FITS = ("qwen1.5-0.5b", "train_4k")
 PRODUCTION_LIMIT_S = 780
 
 
@@ -2871,10 +2881,12 @@ def start_production_dryruns():
 
 def finish_production_dryruns(started):
     """Phase 12b, read: each run's per-device GiB, global FLOPs and
-    collective MiB a device, as the reference's line prints them, and how
-    long it took.  A run not done within PRODUCTION_LIMIT_S of its start
-    is stopped and fails the phase."""
+    collective bytes a device, by kind and by op, as the reference's line
+    prints them, and how long it took.  A run not done within
+    PRODUCTION_LIMIT_S of its start is stopped and fails the phase, as
+    does a PRODUCTION_FITS run over the card's HBM."""
     from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import HBM_BYTES
     procs, out = started
     runs = {}
     try:
@@ -2893,17 +2905,23 @@ def finish_production_dryruns(started):
                     if ln.startswith("[dryrun]")][-1]
             print(line, flush=True)
             runs[f"{arch}__{shape}__{rec['mesh']}"] = {
-                "line": line,
+                "line": line, "n_layers": rec["n_layers"],
+                "trip_rule": rec["trip_rule"],
                 "gib_per_device": t["hbm_gib_per_dev"],
                 "flops_global": rec["flops_global"],
-                "collective_mib_per_device": sum(
-                    rec["collective_bytes_per_device"].values()) / 2 ** 20,
+                "collective_gib_per_device": sum(
+                    rec["collective_bytes_per_device"].values()) / 2 ** 30,
                 "collective_bytes_per_device":
                     rec["collective_bytes_per_device"],
+                "collective_bytes_by_op": rec["collective_bytes_by_op"],
                 "memory": rec["memory"], "terms": t,
                 "seconds": {k: rec[k] for k in ("build_s", "global_s",
                                                 "sharded_s")},
                 "wall_s": time.monotonic() - t0}
+            if (arch, shape) == PRODUCTION_FITS:
+                require(_predicted(rec) < HBM_BYTES,
+                        f"12b {arch} x {shape} predicts {_predicted(rec)} "
+                        f"bytes a device, over the card's {HBM_BYTES}")
     finally:
         for *_, proc in procs:
             if proc.poll() is None:
@@ -2994,6 +3012,93 @@ def sharded_prefill(seed, want_logits):
     del params, dparams, caches, dcaches, logits, last, got
     _free_cuda()
     return counts["flash_attention"]
+
+
+def sharded_train(seed, main):
+    """Phase 12d: phase 10a's train step (qwen3-14b, TRAIN_LAYERS layers,
+    TRAIN_BATCH x TRAIN_SEQ, its MICROBATCHES, Adam, the same weights and
+    batch) with DTensor params on one NCCL rank's 1 x 1 ("data", "model")
+    mesh under ``make_rules`` with activation FSDP, so the residual
+    stream's d is split (over one rank): the CE runs vocab-parallel
+    (its row statistics all-reduced) and the norms all-reduce theirs.
+    The first step's loss must be 10a's within TRAIN_DTENSOR_RTOL; its ms
+    a step and its peak stand beside 10a's.  The reference trains through
+    plain attention, so no kernel launches."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lm_steps
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_map
+    from repro_torch.sharding import placements, use_rules
+    from repro_torch.sharding.rules import P
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    params = tf.init_model(torch.Generator(TRAIN_DEVICE).manual_seed(seed),
+                           cfg, dtype=lm_steps.PARAM_DTYPE)
+    batch = lm_steps.train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed,
+                                 TRAIN_DEVICE)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rules = mesh_mod.make_rules(mesh, shard_activations=True)
+        dparams = tree_map(lambda t, sp: DTensor.from_local(
+            t, mesh, placements(sp, mesh), run_check=False), params,
+            rules.pspec_tree(params))
+        dbatch = {k: DTensor.from_local(v, mesh, placements(
+            P(("data",), *(None,) * (v.ndim - 1)), mesh), run_check=False)
+            for k, v in batch.items()}
+        optimizer, step = lm_steps.build_train_step(cfg)
+        opt_state = optimizer.init(dparams)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses, ms = [], []
+        with use_rules(rules), implicit_replication():
+            for _ in range(TRAIN_DTENSOR_STEPS):
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+                dparams, opt_state, m = step(dparams, opt_state, dbatch,
+                                             TRAIN_LR)
+                t1.record()
+                torch.cuda.synchronize()
+                ms.append(t0.elapsed_time(t1))
+                losses.append(float(m["loss"].full_tensor()))
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    want = main["losses"][0]
+    rel = abs(losses[0] / want - 1.0)
+    require(all(map(math.isfinite, losses)), f"12d non-finite loss {losses}")
+    require(rel <= TRAIN_DTENSOR_RTOL,
+            f"12d first loss {losses[0]!r} against 10a's {want!r} "
+            f"(rel {rel:.3g}, bound {TRAIN_DTENSOR_RTOL})")
+    require(not any(counts.values()), f"12d launched kernels: {counts}")
+    emit({"phase": "sharded_train", "mesh": "1x1 (nccl)", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "microbatches": lm_steps.MICROBATCHES[TRAIN_ARCH],
+          "shard_activations": True, "losses": losses,
+          "phase10a_first_loss": want, "rel_diff": rel,
+          "tolerance": TRAIN_DTENSOR_RTOL, "step_ms": ms,
+          "median_step_ms": statistics.median(ms[1:]),
+          "phase10a_median_step_ms": main["median_step_ms"],
+          "peak_gib": peak / 2 ** 30, "phase10a_peak_gib": main["peak_gib"],
+          "launches": counts})
+    del params, dparams, opt_state, batch, dbatch, step, optimizer
+    _free_cuda()
 
 
 # -------------------------------------------------------------- phase 13
@@ -3240,7 +3345,9 @@ def main():
 
     # ---- phase 10: LLM training (no kernel: the plain attention route, as
     # the reference trains)
-    train_flash, train_peak = lm_train_slice(args.seed)
+    train_main = lm_train_slice(args.seed)
+    train_flash, train_peak = (train_main["flash_launches"],
+                               train_main["peak_bytes"])
 
     # ---- phase 12b starts first: the production-mesh dry runs are host
     # work only, in processes of their own, read after phase 12c
@@ -3257,6 +3364,10 @@ def main():
     # ---- phase 12c: a sharded prefill (DTensor params, one NCCL rank,
     # the production rules) through the flash kernel
     sharded_flash = sharded_prefill(args.seed, lm_logits)
+
+    # ---- phase 12d: phase 10a's train step with DTensor params on one
+    # NCCL rank (the vocab-parallel CE, the norms' all-reduces)
+    sharded_train(args.seed, train_main)
 
     # ---- phase 12b: read the production-mesh dry runs
     finish_production_dryruns(production)

@@ -17,10 +17,13 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding import constrain
-from repro_torch.sharding.rules import local_region
+from repro_torch.sharding.rules import (P, active_rules, all_reduce,
+                                        local_block, local_region,
+                                        placements, safe_spec)
 
 
 def horizon_weights(horizon: int, beta: float, dtype=torch.float32,
@@ -136,9 +139,70 @@ def head_logits(h, w_head):
 def _ce_chunk(h, w_head, labels, mw):
     """One chunk's weighted negative log-likelihood sum and weight sum."""
     logits = constrain(head_logits(h, w_head), "batch", None, "act_vocab")
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    if isinstance(logits, DTensor) and active_rules() is not None:
+        ll = _vocab_parallel_ll(logits, labels)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     return torch.sum(-ll * mw), torch.sum(mw)
+
+
+def _vocab_parallel_ll(logits, labels):
+    """log softmax(logits)[label] (B, c) of vocab-sharded logits (B, c,
+    V): each rank keeps its block of the vocabulary (the reference's
+    GSPMD partitions ``log_softmax`` so), and the row statistics cross
+    the ranks in small all-reduces (:class:`_VocabParallelLL`)."""
+    rules = active_rules()
+    mesh = logits.device_mesh
+    spec = safe_spec(tuple(logits.shape), P(rules.logical["batch"], None,
+                                            rules.tensor_axis), rules.mesh)
+    pl = placements(spec, mesh)
+    rows = placements(P(spec[0], None), mesh)
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    z = logits.redistribute(mesh, pl).to_local()
+    offset = local_block(tuple(logits.shape), mesh, pl)[1][2]
+    groups = tuple(mesh.get_group(i) for i, p in enumerate(pl)
+                   if isinstance(p, Shard) and p.dim == 2)
+    ll = _VocabParallelLL.apply(z, labels.redistribute(mesh, rows).to_local(),
+                                offset, groups)
+    return DTensor.from_local(ll, mesh, rows, run_check=False,
+                              shape=labels.shape, stride=labels.stride())
+
+
+class _VocabParallelLL(torch.autograd.Function):
+    """The label's log-probability from one rank's block z (b, c, V_local)
+    of fp32 logits, the vocabulary's block starting at ``offset`` and
+    split over ``groups``: the row max by an all-reduce MAX, then the
+    row's sum of exp(z - max) and the label's logit (each rank's where the
+    label falls in its block, else 0) by one all-reduce SUM
+    ("vocab_parallel_ce").  The backward, softmax - onehot on each block,
+    needs no collective."""
+
+    @staticmethod
+    def forward(ctx, z, labels, offset, groups):
+        v = z.shape[-1]
+        zmax = all_reduce(torch.amax(z, dim=-1, keepdim=True), "max",
+                          groups, "vocab_parallel_ce")
+        idx = labels.long()[..., None] - offset
+        inside = (idx >= 0) & (idx < v)
+        idx = idx.clamp(0, v - 1)
+        picked = torch.where(inside, torch.gather(z, -1, idx), 0.0)
+        stats = all_reduce(torch.cat([torch.sum(torch.exp(z - zmax), dim=-1,
+                                                keepdim=True), picked], -1),
+                           "sum", groups, "vocab_parallel_ce")
+        lse = zmax + torch.log(stats[..., :1])
+        ctx.save_for_backward(z, lse, idx, inside)
+        return (stats[..., 1:] - lse)[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        z, lse, idx, inside = ctx.saved_tensors
+        g = g[..., None]
+        gz = torch.exp(z - lse) * -g
+        gz.scatter_add_(-1, idx, torch.where(inside, g, 0.0))
+        return gz, None, None, None
 
 
 def chunked_weighted_ce(h, w_head, labels, beta: float = 1.0, mask=None,

@@ -12,8 +12,24 @@
   scatter / cat / pad, and elementwise results, each charged once
   (fusion-blind: an over-estimate for fused elementwise chains).  Views,
   reshapes, transposes, dtype casts, copies and fills cost nothing, as
-  the reference's ``_ELTWISE_SKIP`` says.  Eager torch runs every loop
-  trip, so trip counts come out right with no rule for loops.
+  the reference's ``_ELTWISE_SKIP`` says.
+
+* The trip-count rule: the model's loops of identical trips (the sLSTM's
+  steps, a stack's identical layers, the microbatches) run through
+  ``models.scan.loop``, the port's ``lax.scan``.  Eager torch runs every
+  trip; a tracker made with ``trip_rule=True`` answers a loop on fake
+  tensors (the dry run) with three trips, the first, the second and the
+  last, and counts the second once for every trip between the first and
+  the last, as the reference's ``jaxpr_cost`` multiplies a scan body by
+  its ``length``.  The counts of the backward follow: each autograd node
+  that a trip made is marked with the trip's multiplier, and an op that
+  a node's backward dispatches is charged at it; the skipped trips'
+  outputs are the second trip's, detached, so that its backward takes
+  one gradient.  The memory model stays that of the unrolled loop: a storage
+  that the first trip made and that the second trip's twin of it finds
+  still live at the end is one that every trip adds (a saved input, an
+  output row), and counts once more for every trip the rule skips, until
+  it is freed; a loop's collected outputs are stacked at full size.
 
 * :func:`collective_bytes` counts, per device, the result bytes of each
   c10d functional collective that DTensor issues in the SHARDED step (the
@@ -30,15 +46,20 @@ its peak.
 from __future__ import annotations
 
 import contextlib
+import difflib
 import functools
 import weakref
-from typing import Dict
+from typing import Dict, List
 
 import torch
 from torch.distributed.tensor import DTensor
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack)
+from torch.utils._pytree import tree_leaves, tree_map
 from torch.utils.flop_counter import flop_registry
+
+from repro_torch.models import scan
+from repro_torch.sharding import rules
 
 aten = torch.ops.aten
 
@@ -101,10 +122,18 @@ class StepTracker(TorchDispatchMode):
     collectives that redistribute its operands: under DTensor every count
     is one device's.  Storages registered with :meth:`hold` (the step's
     arguments) are not counted as new; every other storage an op returns
-    counts from its first appearance until it is freed."""
+    counts from its first appearance until it is freed.
 
-    def __init__(self):
+    While it is open it books the collectives of ``rules.all_reduce``
+    (``rules.BOOKERS``) and, made with ``trip_rule=True``, answers the
+    model's loops on fake tensors (``scan.HOOKS``, the module's
+    docstring)."""
+
+    def __init__(self, trip_rule: bool = False):
         super().__init__()
+        self.trip_rule = trip_rule    # three trips of a loop, not all
+        self.mult = 1                 # trips each forward op stands for
+        self._trips: List[_Trip] = []         # open trips, innermost last
         self.flops = 0.0
         self.dot_flops = 0.0          # the products' share of ``flops``
         self.bytes = 0.0
@@ -120,6 +149,16 @@ class StepTracker(TorchDispatchMode):
         self._held = set()
         self._refs = {}
         self.paused = 0               # > 0: ops pass uncounted
+
+    def __enter__(self):
+        rules.BOOKERS.append(self.booking)
+        scan.HOOKS.append(self._loop)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        scan.HOOKS.remove(self._loop)
+        rules.BOOKERS.remove(self.booking)
+        return super().__exit__(*exc)
 
     @contextlib.contextmanager
     def booking(self, name: str):
@@ -172,12 +211,100 @@ class StepTracker(TorchDispatchMode):
         n = st.nbytes()
         self._sizes[key] = n
         self.live += n
-        self.peak = max(self.peak, self.live)
-        self._refs[key] = weakref.ref(st, functools.partial(self._free, key))
+        ref = weakref.ref(st, functools.partial(self._free, key))
+        self._refs[key] = ref
+        for trip in self._trips:
+            trip.made.append((key, ref))
+        self._raise_peak(self.live)
+
+    def _raise_peak(self, live) -> None:
+        self.peak = max(self.peak, live)
+        for trip in self._trips:
+            trip.peak = max(trip.peak, live)
 
     def _free(self, key, _ref) -> None:
         self.live -= self._sizes.pop(key, 0)
         self._refs.pop(key, None)
+
+    # ------------------------------------------------------------ loops
+    def _alive(self, key, ref) -> bool:
+        return self._refs.get(key) is ref
+
+    def _loop(self, n: int, body, carry):
+        """``scan.HOOKS``' entry: a loop of more than three trips on fake
+        tensors under the rule, else None (every trip runs)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        if n > 3 and self.trip_rule and any(
+                isinstance(m, FakeTensorMode)
+                for m in _get_current_dispatch_mode_stack()):
+            return self.run_loop(n, body, carry)
+        return None
+
+    def _trip(self, body, i, carry, mult):
+        """Trip ``i`` of a loop, each of its ops standing for ``mult``
+        trips; returns (carry, y, the trip's record).  A trip of the
+        forward marks the autograd nodes it made (:func:`_mark`)."""
+        forward = not _in_backward()
+        trip = _Trip(self.live, self._node_seq() if forward else None)
+        outer, self.mult = self.mult, mult
+        self._trips.append(trip)
+        try:
+            carry, y = body(i, carry)
+        finally:
+            self._trips.pop()
+            self.mult = outer
+        if forward:
+            _mark((carry, y), trip.first, self._node_seq(), mult)
+        return carry, y, trip
+
+    def run_loop(self, n: int, body, carry):
+        """A loop under the trip-count rule (``n`` > 3): the first and
+        the last trip counted once, the second for the ``n`` - 2 between
+        (the first takes the loop's input, the last's backward the
+        gradient from past the loop: either may differ)."""
+        outer = self._mult_now()
+        carry, y0, t0 = self._trip(body, 0, carry, outer)
+        carry, y1, t1 = self._trip(body, 1, carry, outer * (n - 2))
+        carry, y2, t2 = self._trip(body, n - 1, carry, outer)
+        # the storages of trips 0 and 1 still live, paired in order by
+        # size (a trip may make what the other does not: a cache filled
+        # once, a carry that the next trip replaces)
+        kept0 = [k for k, r in t0.made if self._alive(k, r)]
+        kept1 = [k for k, r in t1.made if self._alive(k, r)]
+        match = difflib.SequenceMatcher(
+            None, [self._sizes[k] for k in kept0],
+            [self._sizes[k] for k in kept1], autojunk=False)
+        grown = 0
+        for i, j, size in match.get_matching_blocks():
+            for k0, k1 in zip(kept0[i:i + size], kept1[j:j + size]):
+                # kept by every trip: trip 0's stands for the n - 3 more
+                extra = (n - 3) * self._sizes[k1]
+                self._sizes[k0] += extra
+                grown += extra
+        self.live += grown
+        self._raise_peak(t2.peak + grown)
+        # the skipped trips' outputs: trip 1's, cut from its graph, whose
+        # backward takes one gradient and counts it for them all
+        cut = tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor)
+                       else t, y1)
+        return carry, [y0, y1] + [cut] * (n - 3) + [y2]
+
+    def _node_seq(self) -> int:
+        """The sequence number the next autograd node made on this
+        thread will get (one past a scratch node's)."""
+        with self.pause(), torch.enable_grad():
+            probe = torch.zeros((), requires_grad=True) * 1
+        return probe.grad_fn._sequence_nr() + 1
+
+    def _mult_now(self) -> int:
+        """The trips the op being dispatched stands for: in a backward,
+        the multiplier marked on the node it runs, unless a loop that
+        the backward opened is running (its trips set ``mult``); an
+        unmarked node was made outside any finished trip, at ``mult``."""
+        node = torch._C._current_autograd_node()
+        if node is None or (self._trips and self._trips[-1].first is None):
+            return self.mult
+        return node.metadata.get("trip_mult", self.mult)
 
     # ------------------------------------------------------------ dispatch
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -191,36 +318,71 @@ class StepTracker(TorchDispatchMode):
             return out
         packet = func._overloadpacket
         outs = _tensors(out)
+        m = self._mult_now()
         if packet in COLLECTIVES:
             kind = COLLECTIVES[packet]
-            n = sum(map(_nbytes, outs))
+            n = sum(map(_nbytes, outs)) * m
             self.collectives[kind] = self.collectives.get(kind, 0) + n
             self.collectives_by_op[self._dtensor_op] = (
                 self.collectives_by_op.get(self._dtensor_op, 0) + n)
         elif packet in flop_registry:
-            f = flop_registry[packet](*args, **kwargs, out_val=out)
+            f = flop_registry[packet](*args, **kwargs, out_val=out) * m
             self.flops += f
             self.dot_flops += f
-            self.bytes += sum(map(_nbytes, _tensors((args, kwargs)) + outs))
+            self.bytes += sum(map(_nbytes,
+                                  _tensors((args, kwargs)) + outs)) * m
         elif packet in _MOVE:
-            self.bytes += sum(map(_nbytes, outs))
+            self.bytes += sum(map(_nbytes, outs)) * m
         elif packet not in _FREE and packet is not _c10d.wait_tensor:
-            self.flops += sum(t.numel() for t in outs)
-            self.bytes += sum(map(_nbytes, outs))
+            self.flops += sum(t.numel() for t in outs) * m
+            self.bytes += sum(map(_nbytes, outs)) * m
         for t in outs:
             self._track(t)
         return out
+
+
+class _Trip:
+    """One open trip of a loop: the storages it made, in order, and the
+    peak of live bytes while it ran."""
+
+    def __init__(self, live, first):
+        self.made: List[tuple] = []
+        self.peak = live
+        self.first = first          # the seq of its first node (None: in
+        #                             a backward, on another thread)
+
+
+def _mark(outs, first: int, last: int, mult: int) -> None:
+    """Mark the autograd nodes behind ``outs`` that a trip made (sequence
+    numbers in [``first``, ``last``)) with its multiplier; the nodes of a
+    loop inside the trip keep their own."""
+    todo = [t.grad_fn for t in _tensors(outs) if t.grad_fn is not None]
+    seen = set()
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen or not (
+                first <= node._sequence_nr() < last):
+            continue
+        seen.add(node)
+        node.metadata.setdefault("trip_mult", mult)
+        todo.extend(f for f, _ in node.next_functions)
 
 
 def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def step_cost(fn, *args, **kwargs) -> Dict[str, float]:
+def _in_backward() -> bool:
+    return torch._C._current_graph_task_id() != -1
+
+
+def step_cost(fn, *args, trip_rule: bool = False, **kwargs
+              ) -> Dict[str, float]:
     """{"flops", "bytes", "dot_flops"} of ``fn(*args, **kwargs)``: the
     global step, on plain (fake) tensors with no sharding rules active;
-    ``dot_flops`` is the products' share of ``flops``."""
-    with StepTracker() as tr:
+    ``dot_flops`` is the products' share of ``flops``.  ``trip_rule``:
+    the model's loops run three trips each on fake tensors."""
+    with StepTracker(trip_rule) as tr:
         fn(*args, **kwargs)
     return {"flops": tr.flops, "bytes": tr.bytes, "dot_flops": tr.dot_flops}
 

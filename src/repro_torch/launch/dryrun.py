@@ -27,6 +27,11 @@ takes the card's code paths; no kernel runs on a fake tensor (a kernel
 takes device pointers), so attention takes its plain route, as the
 reference's dry run does unless ``REPRO_FLASH`` is set.
 
+The model's loops of identical trips (the sLSTM's steps, a stack's
+layers, the microbatches) run three trips each and count the middle one
+for the rest (``costmodel``'s trip-count rule, the reference's scan
+rule).
+
 Records land in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``
 with the reference's keys; ``launch.roofline`` turns them into a table.
 They are predictions of the port's step on a mesh of H100s, not
@@ -482,17 +487,20 @@ def dtensor_bookkeeping_apart(tracker: costmodel.StepTracker):
             setattr(owner, name, orig)
 
 
-def measure(step: Step) -> Dict:
+def measure(step: Step, trip_rule: bool = True) -> Dict:
     """Run ``step`` twice: un-sharded for the global FLOPs and bytes, then
     on the mesh for collective bytes and per-device memory.  Call inside
-    ``FakeTensorMode`` (as :func:`build_step` was)."""
+    ``FakeTensorMode`` (as :func:`build_step` was).  ``trip_rule``: the
+    model's loops run three trips each, counted for all (``costmodel``'s
+    trip-count rule); else every trip runs."""
     from torch.distributed.tensor.experimental import implicit_replication
     grad = step.kind == "train"
     t0 = time.perf_counter()
     with torch.set_grad_enabled(grad):
-        gcost = costmodel.step_cost(step.global_fn, *step.global_args)
+        gcost = costmodel.step_cost(step.global_fn, *step.global_args,
+                                    trip_rule=trip_rule)
     t1 = time.perf_counter()
-    tracker = costmodel.StepTracker()
+    tracker = costmodel.StepTracker(trip_rule)
     arg_bytes = tracker.hold(_tensor_leaves(step.args))
     with torch.set_grad_enabled(grad), dtensor_bookkeeping_apart(tracker), \
             tracker, implicit_replication():
@@ -522,7 +530,8 @@ def mesh_of(shape) -> object:
 def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             mesh_shape=None, out_dir: str = OUT_DIR, quiet: bool = False,
             tag: str = "", reduced: bool = False, layers: int = 0,
-            batch: int = 0, seq: int = 0, microbatches=None) -> Dict:
+            batch: int = 0, seq: int = 0, microbatches=None,
+            trip_rule: bool = True) -> Dict:
     """Build and measure one combination and write its record: on the
     production mesh, or on a mesh of ``mesh_shape``; the arch's config
     (``reduced()``, or cut to ``layers``) at the shape (``batch`` and
@@ -530,7 +539,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     (:func:`fake_process_group`), of the mesh's size.  ``temp_bytes`` is
     the peak of local bytes the step holds above its arguments, less its
     outputs', so argument + temp + output bytes is the predicted
-    per-device peak."""
+    per-device peak.  ``trip_rule`` False traces every trip of every
+    loop (:func:`measure`)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     t0 = time.perf_counter()
     mesh = (mesh_of(mesh_shape) if mesh_shape else
@@ -549,13 +559,14 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         step = build_step(arch, shape, cfg=cfg, mesh=mesh,
                           microbatches=microbatches)
         t_build = time.perf_counter() - t0
-        m = measure(step)
+        m = measure(step, trip_rule)
     n_chips = 1
     for s in mesh.shape:
         n_chips *= s
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
            "n_chips": n_chips, "n_layers": cfg.n_layers,
-           "reduced": reduced, "global_batch": shape.global_batch,
+           "reduced": reduced, "trip_rule": trip_rule,
+           "global_batch": shape.global_batch,
            "seq_len": shape.seq_len, "kind": shape.kind, **m,
            "build_s": t_build}
     out = Path(out_dir)

@@ -15,9 +15,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.sharding import constrain
-from repro_torch.sharding.rules import matmul, replicated, whole_dim
+from repro_torch.sharding.rules import (all_reduce, last_dim_split,
+                                        matmul, replicated)
 
 
 def seeded_generator(seed: int, *stream: int) -> torch.Generator:
@@ -40,22 +42,79 @@ def dense_init(generator: torch.Generator, in_dim, out_dim, scale=None,
 
 def rms_norm(x, scale, eps=1e-5):
     """RMS norm over the last axis, computed in fp32, cast back to x's
-    dtype."""
+    dtype.  On a DTensor whose last dim is split, each rank normalizes its
+    block (:class:`_SplitNorm`)."""
     dt = x.dtype
-    x = whole_dim(x.float())
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    x, groups = last_dim_split(x.float())
+    if groups:
+        x = _split_norm(x, groups, eps, centre=False)
+    else:
+        x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * scale.float()).to(dt)
 
 
 def layer_norm(x, scale, bias, eps=1e-5):
     """Layer norm over the last axis (biased variance), computed in fp32,
-    cast back to x's dtype."""
+    cast back to x's dtype; a split last dim as :func:`rms_norm`."""
     dt = x.dtype
-    x = whole_dim(x.float())
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
-    y = (x - mu) * torch.rsqrt(var + eps)
+    x, groups = last_dim_split(x.float())
+    if groups:
+        y = _split_norm(x, groups, eps, centre=True)
+    else:
+        mu = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+        y = (x - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(dt)
+
+
+def _split_norm(x, groups, eps, centre):
+    """``x`` (a DTensor split over its last dim by ``groups``) normalized
+    over the whole of that dim, laid out as it came."""
+    y = _SplitNorm.apply(x.to_local(), x.shape[-1], eps, centre, groups)
+    return DTensor.from_local(y, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+class _SplitNorm(torch.autograd.Function):
+    """A block (..., d_local) of a last dim d split over ``groups``,
+    normalized with the statistics of the whole of d: each statistic is
+    the block's mean scaled by its share d_local / d and summed over the
+    ranks by one all-reduce of a (..., 1) tensor ("norm_stats"); the
+    backward's two means of d likewise.  With one rank the share is 1.0
+    and the all-reduce the identity, so the arithmetic is the plain
+    norm's.  ``centre``: layer norm (the mean taken out first), else RMS
+    norm."""
+
+    @staticmethod
+    def forward(ctx, x, d, eps, centre, groups):
+        share = x.shape[-1] / d
+
+        def mean(t):
+            return all_reduce(torch.mean(t, dim=-1, keepdim=True) * share,
+                              "sum", groups, "norm_stats")
+        if centre:
+            x = x - mean(x)
+            r = torch.rsqrt(mean(x ** 2) + eps)
+        else:
+            r = torch.rsqrt(mean(x * x) + eps)
+        y = x * r
+        ctx.save_for_backward(y, r)
+        ctx.share, ctx.centre, ctx.groups = share, centre, groups
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        # y = x_c r:  dx = r (g - [mean(g)] - y mean(g y)), means over d
+        y, r = ctx.saved_tensors
+        terms = [g, g * y] if ctx.centre else [g * y]
+        means = all_reduce(torch.cat(
+            [torch.mean(t, dim=-1, keepdim=True) for t in terms], dim=-1)
+            * ctx.share, "sum", ctx.groups, "norm_stats")
+        dx = g - y * means[..., -1:]
+        if ctx.centre:
+            dx = dx - means[..., :1]
+        return dx * r, None, None, None, None
 
 
 # ------------------------------------------------------------------ RoPE

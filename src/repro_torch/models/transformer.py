@@ -29,7 +29,10 @@ groups:
 
 plus ``embed_tokens`` (audio: ``cb_embed`` / ``cb_heads``), ``projector``
 (vlm), ``final_norm`` and ``lm_head`` unless the embeddings are tied.  The
-JAX package scans the stacks; here Python loops walk views of them.
+JAX package scans the stacks; here ``models.scan.loop`` walks views
+of them (a leaf under autograd through :class:`_Unstack`), and walks the
+microbatches, so that the dry run can count a stack as the reference's
+cost model counts a scan.
 Caches are stacked the same way and filled in place: the KV and latent
 caches slot by slot, the SSM and xLSTM states by copying each layer's new
 state into its slice.  Full-sequence attention takes ``attn_impl`` (see
@@ -65,8 +68,10 @@ from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (dense_init, embed, init_embedding,
                                        init_mlp, mlp, rms_norm,
                                        tree_from_numpy, tree_leaves, tree_map)
+from repro_torch.models.scan import loop
 from repro_torch.sharding import constrain
-from repro_torch.sharding.rules import gather_fsdp, matmul, reshape
+from repro_torch.sharding.rules import (gather_fsdp, matmul, reshape,
+                                        whole_last)
 
 
 def _map(fn, tree):
@@ -78,6 +83,38 @@ def _map(fn, tree):
 def _layer(tree, l: int):
     """Layer ``l`` of a stacked tree, as views."""
     return _map(lambda t: t[l], tree)
+
+
+class _Unstack(torch.autograd.Function):
+    """(L, ...) -> its L rows, as views; the backward stacks the rows'
+    gradients once (zeros for a row that had none), as the VJP of a scan
+    over stacked params gives them.  Indexed row by row, autograd would
+    give each row's gradient as a zero-padded (L, ...) copy and sum the L
+    copies."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.set_materialize_grads(False)
+        return tuple(t[l] for l in range(t.shape[0]))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        like = next((g for g in grads if g is not None), None)
+        if like is None:
+            return None
+        return torch.stack([torch.zeros_like(like) if g is None else g
+                            for g in grads])
+
+
+def _layers(tree, n: int):
+    """The ``n`` layers of a stacked tree, as views: a leaf that
+    autograd records goes through :class:`_Unstack`."""
+    def rows(t):
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _Unstack.apply(t)
+        return tuple(t[l] for l in range(n))
+    cols = _map(rows, tree)
+    return [_map(lambda r: r[l], cols) for l in range(n)]
 
 
 def _assign(dst, src) -> None:
@@ -222,6 +259,12 @@ def params_from_numpy(tree, device="cpu") -> Dict:
 
 
 # ===================================================================== blocks
+def _pre_norm(x, scale, cfg: ModelConfig):
+    """A block's input norm; on a mesh its output is gathered whole over
+    d once for the block's products (the norm itself splits d)."""
+    return whole_last(rms_norm(x, scale, cfg.norm_eps))
+
+
 def _attend_fwd(p, h, cfg: ModelConfig, cache, window, attn_impl):
     if cfg.mla is not None:
         return attn.mla_forward(p, h, cfg, cache=cache, window=window)
@@ -238,39 +281,39 @@ def _attend_dec(p, h, cache, pos, cfg: ModelConfig, window):
 def _dense_block_fwd(p, x, cfg: ModelConfig, *, cache=None, window=0,
                      attn_impl="kernel"):
     p = gather_fsdp(p)
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = _pre_norm(x, p["ln1"], cfg)
     a, cache = _attend_fwd(p["attn"], h, cfg, cache, window, attn_impl)
     x = x + a
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    h = _pre_norm(x, p["ln2"], cfg)
     return constrain(x + mlp(p["mlp"], h), "batch", None, "embed"), cache
 
 
 def _dense_block_dec(p, x, cache, pos, cfg: ModelConfig, *, window=0):
     p = gather_fsdp(p)
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = _pre_norm(x, p["ln1"], cfg)
     a, cache = _attend_dec(p["attn"], h, cache, pos, cfg, window)
     x = x + a
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    h = _pre_norm(x, p["ln2"], cfg)
     return x + mlp(p["mlp"], h), cache
 
 
 def _moe_block_fwd(p, x, cfg: ModelConfig, *, cache=None, window=0,
                    attn_impl="kernel"):
     p = gather_fsdp(p)
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = _pre_norm(x, p["ln1"], cfg)
     a, cache = _attend_fwd(p["attn"], h, cfg, cache, window, attn_impl)
     x = x + a
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    h = _pre_norm(x, p["ln2"], cfg)
     ff, aux = moe_mod.moe_ffn(p["moe"], h, cfg)
     return constrain(x + ff, "batch", None, "embed"), cache, aux
 
 
 def _moe_block_dec(p, x, cache, pos, cfg: ModelConfig, *, window=0):
     p = gather_fsdp(p)
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = _pre_norm(x, p["ln1"], cfg)
     a, cache = _attend_dec(p["attn"], h, cache, pos, cfg, window)
     x = x + a
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    h = _pre_norm(x, p["ln2"], cfg)
     ff, _ = moe_mod.moe_ffn(p["moe"], h, cfg)
     return x + ff, cache
 
@@ -280,7 +323,7 @@ def _residual_fwd(forward_fn, p, x, cfg: ModelConfig):
     state: x + inner(norm(x)), and the inner block's final state."""
     p = gather_fsdp(p)
     inner = p["ssm"] if "ssm" in p else p["inner"]
-    o, st = forward_fn(inner, rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
+    o, st = forward_fn(inner, _pre_norm(x, p["ln1"], cfg), cfg)
     return constrain(x + o, "batch", None, "embed"), st
 
 
@@ -288,7 +331,7 @@ def _residual_dec(decode_fn, p, x, st, cfg: ModelConfig):
     """One token of such a block against its state."""
     p = gather_fsdp(p)
     inner = p["ssm"] if "ssm" in p else p["inner"]
-    o, st = decode_fn(inner, rms_norm(x, p["ln1"], cfg.norm_eps), st, cfg)
+    o, st = decode_fn(inner, _pre_norm(x, p["ln1"], cfg), st, cfg)
     return x + o, st
 
 
@@ -377,10 +420,15 @@ def forward(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16,
         _assign(dst, st)
         return x
 
+    def stack(n, trip, x):
+        """``trip(l, x) -> x`` over ``n`` identical layers (a scan)."""
+        return loop(n, lambda l, x: (trip(l, x), None), x)[0]
+
     def dense_stack(blocks, cs, x):
-        for l in range(blocks["ln1"].shape[0]):
-            x = run(dense, x, _layer(blocks, l), cache_of(cs, l))
-        return x
+        n = blocks["ln1"].shape[0]
+        ps = _layers(blocks, n)
+        return stack(n, lambda l, x: run(dense, x, ps[l], cache_of(cs, l)),
+                     x)
 
     if cfg.arch_type in ("dense", "vlm", "audio"):
         x = dense_stack(params["blocks"], caches, x)
@@ -388,38 +436,45 @@ def forward(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16,
     elif cfg.arch_type == "moe":
         if cfg.dense_layers:
             x = dense_stack(params["dense_blocks"], part("dense"), x)
-        blocks = params["moe_blocks"]
-        for l in range(blocks["ln1"].shape[0]):
-            x, a = run(moe, x, _layer(blocks, l), cache_of(part("moe"), l))
-            aux_total = aux_total + a
+        n = params["moe_blocks"]["ln1"].shape[0]
+        ps = _layers(params["moe_blocks"], n)
+
+        def moe_layer(l, carry):
+            x, a = run(moe, carry[0], ps[l], cache_of(part("moe"), l))
+            return (x, carry[1] + a), None
+        (x, aux_total), _ = loop(n, moe_layer, (x, aux_total))
 
     elif cfg.arch_type == "hybrid":
         g, tail = _zamba_split(cfg)
-        for gi in range(g):
-            pg = _layer(params["mamba_groups"], gi)
+        groups = _layers(params["mamba_groups"], g)
+
+        def mamba_group(gi, x):
+            pg = _layers(groups[gi], cfg.attn_every)
             sg = cache_of(part("groups"), gi)
-            for j in range(cfg.attn_every):
-                x = residual(ssm_mod.ssm_forward, _layer(pg, j), x,
-                             cache_of(sg, j))
-            x = run(dense, x, params["shared_attn"],
-                    cache_of(part("shared"), gi))
-        for j in range(tail):
-            x = residual(ssm_mod.ssm_forward,
-                         _layer(params["mamba_tail"], j), x,
-                         cache_of(part("tail"), j))
+            x = stack(cfg.attn_every, lambda j, x: residual(
+                ssm_mod.ssm_forward, pg[j], x, cache_of(sg, j)), x)
+            return run(dense, x, params["shared_attn"],
+                       cache_of(part("shared"), gi))
+        x = stack(g, mamba_group, x)
+        if tail:
+            pt = _layers(params["mamba_tail"], tail)
+            x = stack(tail, lambda j, x: residual(
+                ssm_mod.ssm_forward, pt[j], x, cache_of(part("tail"), j)), x)
 
     elif cfg.arch_type == "ssm":                          # xlstm
         g, per = _xlstm_groups(cfg)
         m_caches, s_caches = caches if fill else (None, None)
-        for gi in range(g):
-            pm = _layer(params["mlstm_groups"], gi)
+        mgroups = _layers(params["mlstm_groups"], g)
+        sblocks = _layers(params["slstm_blocks"], g)
+
+        def xlstm_group(gi, x):
+            pm = _layers(mgroups[gi], per)
             sm = cache_of(m_caches, gi)
-            for j in range(per):
-                x = residual(xlstm_mod.mlstm_forward, _layer(pm, j), x,
-                             cache_of(sm, j))
-            x = residual(xlstm_mod.slstm_forward,
-                         _layer(params["slstm_blocks"], gi), x,
-                         cache_of(s_caches, gi))
+            x = stack(per, lambda j, x: residual(
+                xlstm_mod.mlstm_forward, pm[j], x, cache_of(sm, j)), x)
+            return residual(xlstm_mod.slstm_forward, sblocks[gi], x,
+                            cache_of(s_caches, gi))
+        x = stack(g, xlstm_group, x)
     else:
         raise ValueError(cfg.arch_type)
 
@@ -497,14 +552,15 @@ def accumulate_grads(params, batch, cfg: ModelConfig, *,
                           "batch", *((None,) * (v.ndim - 1)))
              for k, v in batch.items()}
     gsum = tree_map(lambda p: torch.zeros_like(p, dtype=accum_dtype), params)
-    losses, partss = [], []
-    for i in range(microbatches):
+
+    def microbatch(i, _):
         mb = {k: v[i] for k, v in split.items()}
         loss, parts, g = value_and_grad(params, mb, cfg, **kw)
         tree_map(lambda a, b: a.add_(b.to(accum_dtype)), gsum, g)
-        del g
-        losses.append(loss)
-        partss.append(parts)
+        return None, (loss, parts)
+    _, outs = loop(microbatches, microbatch, None)
+    losses = [loss for loss, _ in outs]
+    partss = [parts for _, parts in outs]
     tree_map(lambda a: a.div_(microbatches), gsum)
     parts = {k: torch.mean(torch.stack([p[k] for p in partss]))
              for k in partss[0]}

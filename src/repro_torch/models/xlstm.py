@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.scan import loop
 from repro_torch.sharding import constrain
 from repro_torch.sharding.rules import (local_region, matmul, reshape,
                                         split_last)
@@ -287,15 +288,19 @@ def _slstm_run(params, xw, state, cfg: ModelConfig):
 def _slstm_scan(xw, r, b, st, cfg: ModelConfig):
     """The sLSTM recurrence over xw (B, S, 4d) from the state (c, n, h, m)
     (``init_slstm_state`` when None): (h (B, S, d), c, n, h, m).  Batch
-    rows are independent."""
+    rows are independent.  The steps take xw's rows through one
+    ``unbind``, whose backward stacks their gradients once (indexed step
+    by step, each would come back as a zero-padded (B, S, 4d) copy)."""
     B, S, _ = xw.shape
     state = (init_slstm_state(cfg, B, device=xw.device) if st[0] is None
              else dict(zip(_SLSTM_KEYS, st)))
     p = {"r": r, "b": b}
-    hs = []
-    for t in range(S):
-        state = _slstm_step(p, xw[:, t], state, cfg)
-        hs.append(state["h"])
+    xs = xw.unbind(1)
+
+    def step(t, state):
+        state = _slstm_step(p, xs[t], state, cfg)
+        return state, state["h"]
+    state, hs = loop(S, step, state)
     h = torch.stack(hs, dim=1).reshape(B, S, -1)
     return (h,) + tuple(state[k] for k in _SLSTM_KEYS)
 

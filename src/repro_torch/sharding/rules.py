@@ -423,21 +423,60 @@ class _Reshape(torch.autograd.Function):
     def backward(ctx, g):
         return _relayout_reshape(g, ctx.in_shape), None
 
-def whole_dim(x, dim: int = -1):
-    """``x`` with dim ``dim`` gathered whole on every rank and its pending
-    sums reduced (a DTensor's ``Shard(dim)`` and ``Partial`` placements
-    become ``Replicate()``), as a norm needs it: it reduces over that dim,
-    and DTensor's partial mean of a split dim cannot be carried through
-    the backward.  A plain tensor as it is."""
+def last_dim_split(x):
+    """(``x`` with its pending sums reduced, the process groups of the mesh
+    dims that split its last dim), as a norm takes its input: the norm
+    reduces over that dim with one all-reduce of its statistics over
+    those groups (DTensor's partial mean of a split dim cannot be carried
+    through the backward).  A plain tensor: (``x``, ())."""
+    if not isinstance(x, DTensor):
+        return x, ()
+    from torch.distributed.tensor import Partial
+    if any(isinstance(p, Partial) for p in x.placements):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in x.placements])
+    last = x.ndim - 1
+    return x, tuple(x.device_mesh.get_group(i)
+                    for i, p in enumerate(x.placements)
+                    if isinstance(p, Shard) and p.dim == last)
+
+
+def whole_last(x):
+    """``x`` with its last dim whole on every rank (a DTensor's
+    ``Shard(last)`` placements become ``Replicate()``): a block's normed
+    input under activation FSDP, gathered once, in its own dtype, for the
+    products that contract it (GSPMD gathers it there).  A plain tensor
+    as it is."""
     if not isinstance(x, DTensor):
         return x
-    from torch.distributed.tensor import Partial
-    d = dim % x.ndim
-    want = [Replicate() if (isinstance(p, Shard) and p.dim == d)
-            or isinstance(p, Partial) else p for p in x.placements]
-    if tuple(want) == tuple(x.placements):
+    last = x.ndim - 1
+    want = [Replicate() if isinstance(p, Shard) and p.dim == last else p
+            for p in x.placements]
+    if want == list(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+# ``name -> context manager``s under which :func:`all_reduce` runs its
+# collectives: a cost model's booking of them under ``name`` (the dry
+# run's tracker registers its own while it is open)
+BOOKERS: List = []
+
+
+def all_reduce(t, op: str, groups, name: str):
+    """``t`` (a plain local tensor) reduced with ``op`` ("sum", "max")
+    over each process group of ``groups`` in turn, through the functional
+    collectives that the dry run counts, booked there under ``name``."""
+    from torch.distributed import _functional_collectives as funcol
+    with contextlib.ExitStack() as stack:
+        for book in BOOKERS:
+            stack.enter_context(book(name))
+        for g in groups:
+            t = funcol.all_reduce(t, op, g)
+            if isinstance(t, funcol.AsyncCollectiveTensor):
+                t = t.wait()
+    return t
 
 def split_last(x, *shape, keep=(0, 2)):
     """``reshape(x, *shape)``, then, on a DTensor, only the dims in

@@ -188,6 +188,68 @@ def sharded_lm(rank, world, init, out_dir, arch, params, batch, lr):
         dist.destroy_process_group()
 
 
+def split_ce_and_norms(rank, world, init, out_dir, ce, norms):
+    """On a (2, world / 2) ``("data", "model")`` mesh under
+    ``launch.mesh``'s rules: ``chunked_weighted_ce`` of ``ce``'s hidden
+    states (batch split over data) under its head (laid out by
+    ``pspec_tree``: the vocabulary split over model), its loss and the
+    gradients of both; and ``rms_norm`` / ``layer_norm`` of ``norms``' x
+    with d split over model (batch over data), each output, and the
+    gradients of x and the norm's params under the weights ``r``.  Rank 0
+    writes the gathered results."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import layers
+    from repro_torch.sharding import placements, use_rules
+    from repro_torch.sharding.rules import P
+
+    _join(rank, world, init)
+    try:
+        mesh = init_device_mesh("cpu", (2, world // 2),
+                                mesh_dim_names=("data", "model"))
+        rules = mesh_mod.make_rules(mesh)
+
+        def lay(a, spec):
+            return distribute_tensor(torch.from_numpy(a), mesh,
+                                     placements(spec, mesh))
+        h = lay(ce["h"], P("data", None, None)).requires_grad_(True)
+        w = lay(ce["w_head"], rules.param_pspec(
+            ("lm_head",), ce["w_head"].shape)).requires_grad_(True)
+        out = {}
+        with use_rules(rules), implicit_replication():
+            loss = losses.chunked_weighted_ce(
+                h, w, lay(ce["labels"], P("data", None)), ce["beta"],
+                lay(ce["mask"], P("data", None)), chunk=ce["chunk"])
+            gh, gw = torch.autograd.grad(loss, [h, w])
+            out["ce"] = {"loss": loss.full_tensor(), "h": gh.full_tensor(),
+                         "w_head": gw.full_tensor(),
+                         "w_layout": np.asarray(
+                             [isinstance(p, Shard) for p in w.placements])}
+            split = P("data", None, "model")
+            for name, fn, ps in (("rms", layers.rms_norm, ("scale",)),
+                                 ("layer", layers.layer_norm,
+                                  ("scale", "bias"))):
+                x = lay(norms["x"], split).requires_grad_(True)
+                args = [lay(norms[k], P(None)).requires_grad_(True)
+                        for k in ps]
+                y = fn(x, *args)
+                loss = torch.sum(y * lay(norms["r"], split))
+                grads = torch.autograd.grad(loss, [x, *args])
+                out[name] = {"y": y.full_tensor(),
+                             "y_split": np.asarray([
+                                 isinstance(p, Shard) and p.dim == 2
+                                 for p in y.placements]),
+                             **{f"g_{k}": g.full_tensor() for k, g in
+                                zip(("x",) + ps, grads)}}
+        if rank == 0:
+            checkpoint.save(os.path.join(out_dir, f"rank{rank}.npz"), out)
+    finally:
+        dist.destroy_process_group()
+
+
 def _mask_after_reduce():
     """A broken round on the flat mesh: the deltas are summed over the
     ranks FIRST and clipped after.  The masks of a real masker would still
