@@ -1,0 +1,21 @@
+"""ms a recorded round that the host waits for the card: the program's
+``fl.wait`` spans (the read of the round's loss, the round's one
+synchronisation) under its ``fl.round`` spans, which
+``repro_torch.tracing`` records while the traced run's profiler does (the
+window's last round; the round before's wait, which opens under an
+unrecorded round, is left out)."""
+
+
+def read(records):
+    if not records.get("trace"):
+        return None
+    try:
+        from repro_torch import tracing
+    except ImportError:             # a program without the tracer
+        return None
+    spans = tracing.snapshot()["spans"]
+    rounds = sum(s[0] == "fl.round" for s in spans)
+    if not rounds:
+        return None
+    return sum(s[4] - s[3] for s in tracing.under(spans, "fl.round")
+               if s[0] == "fl.wait") / 1e6 / rounds

@@ -27,6 +27,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ForecasterConfig
 from repro_torch.models import forecaster
 from repro_torch.models.layers import tree_leaves, tree_map
@@ -47,7 +48,8 @@ def sgd_step(params, batch, lr, cfg: ForecasterConfig, loss: Callable,
     with torch.enable_grad():
         per_client = forecaster.loss_fn(_rebuild(params, leaves), batch, cfg,
                                         loss, cell_impl, dim=(-2, -1))
-        grads = torch.autograd.grad(per_client.sum(), leaves)
+        with tracing.span("fl.backward"):
+            grads = torch.autograd.grad(per_client.sum(), leaves)
     with torch.no_grad():
         g = _rebuild(params, grads)
         if anchor is not None:
@@ -75,9 +77,11 @@ def local_update(params, x, y, batch_idx, lr, cfg: ForecasterConfig,
     rows = torch.arange(M, device=x.device)[:, None]
     losses = []
     for s in range(batch_idx.shape[1]):
-        idx = batch_idx[:, s]                           # (M, B)
-        local, l = sgd_step(local, {"x": x[rows, idx], "y": y[rows, idx]},
-                            lr, cfg, loss, cell_impl, anchor=anchor,
-                            prox_mu=prox_mu)
-        losses.append(l)
+        with tracing.span("fl.local_step"):
+            idx = batch_idx[:, s]                       # (M, B)
+            local, l = sgd_step(local, {"x": x[rows, idx],
+                                        "y": y[rows, idx]},
+                                lr, cfg, loss, cell_impl, anchor=anchor,
+                                prox_mu=prox_mu)
+            losses.append(l)
     return local, torch.stack(losses).mean(0)

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as checkpoint_mod
+from repro_torch import tracing
 from repro_torch.analysis import taint as taint_mod
 from repro_torch.configs.base import (FLConfig, ForecasterConfig,
                                       SecureAggConfig, TransformConfig)
@@ -467,7 +468,11 @@ class RoundEngine:
             w = (w > 0).float()
         m = w.shape[0]
         lo, hi = self._block(m)
-        x, y, batch_idx = (self._rows(a, lo, hi) for a in (x, y, batch_idx))
+        with tracing.span("fl.upload") as up:
+            x, y, batch_idx = (self._rows(a, lo, hi)
+                               for a in (x, y, batch_idx))
+            if up:
+                up.attrs["bytes"] = sum(t.nbytes for t in (x, y, batch_idx))
         keys = rk = None
         if not self.stack.is_identity:
             keys = self.round_keys(round_idx, m, stream)[lo:hi]
@@ -749,43 +754,52 @@ def run_federated_training(all_series, fcfg: ForecasterConfig,
         m_run = -(-m_sel // n_dev) * n_dev
         stopped = False
         for t in range(t0, flcfg.rounds):
-            # membership churn: absent members sit this round out (a pure
-            # function of (seed, round, client id)); a wholly absent
-            # cluster falls back to full membership.  Shapes stay at m_run:
-            # a smaller selection just grows the zero-weight padding.
-            avail = members
-            if engine.latency.churn.absent_prob > 0.0:
-                mask = engine.latency.available(t, members)
-                if mask.any():
-                    avail = members[mask]
-            sel = engine.select(rng, avail, min(m_sel, len(avail)), t,
-                                counts[avail])
-            bidx = partition.ragged_minibatch_indices(
-                rng, counts[sel], steps, ccfg.batch_size)
-            pad_idx = np.resize(np.arange(len(sel)), m_run)
-            x, y, c_sel = provider.round_batch(sel[pad_idx])
-            w = c_sel.copy()
-            w[len(sel):] = 0.0                        # mask padding clients
-            params, sstate, l = engine.step(params, sstate, x, y,
-                                            bidx[pad_idx], w, round_idx=t,
-                                            stream=cid if cid >= 0 else 0)
-            hist.append(float(l))
-            sim_hist.append(engine.sim_time)
-            eps_hist.append(engine.accountant.epsilon())
-            if log_every and (t + 1) % log_every == 0:
-                eps = eps_hist[-1]
-                eps_s = f" eps {eps:.2f}" if np.isfinite(eps) else ""
-                print(f"[cluster {cid}] round {t+1}/{flcfg.rounds} "
-                      f"loss {hist[-1]:.5f} sim_t {sim_hist[-1]:.1f}s{eps_s}")
-            executed += 1
-            stopped = (stop_after_rounds is not None
-                       and executed >= stop_after_rounds)
-            if checkpoint_path is not None and writer and (
-                    (t + 1) % max(checkpoint_every, 1) == 0
-                    or t + 1 == flcfg.rounds or stopped):
-                _save(cid, params, sstate, hist, sim_hist, eps_hist, t + 1)
-            if stopped:
-                break
+            with tracing.span("fl.round", cluster=int(cid), round=t) as rs:
+                # membership churn: absent members sit this round out (a
+                # pure function of (seed, round, client id)); a wholly
+                # absent cluster falls back to full membership.  Shapes
+                # stay at m_run: a smaller selection just grows the
+                # zero-weight padding.
+                avail = members
+                if engine.latency.churn.absent_prob > 0.0:
+                    mask = engine.latency.available(t, members)
+                    if mask.any():
+                        avail = members[mask]
+                sel = engine.select(rng, avail, min(m_sel, len(avail)), t,
+                                    counts[avail])
+                bidx = partition.ragged_minibatch_indices(
+                    rng, counts[sel], steps, ccfg.batch_size)
+                if rs:
+                    rs.attrs.update(clients=len(sel), local_steps=steps,
+                                    windows=len(sel) * steps
+                                    * ccfg.batch_size)
+                pad_idx = np.resize(np.arange(len(sel)), m_run)
+                x, y, c_sel = provider.round_batch(sel[pad_idx])
+                w = c_sel.copy()
+                w[len(sel):] = 0.0                    # mask padding clients
+                params, sstate, l = engine.step(
+                    params, sstate, x, y, bidx[pad_idx], w, round_idx=t,
+                    stream=cid if cid >= 0 else 0)
+                with tracing.span("fl.wait"):
+                    hist.append(float(l))
+                sim_hist.append(engine.sim_time)
+                eps_hist.append(engine.accountant.epsilon())
+                if log_every and (t + 1) % log_every == 0:
+                    eps = eps_hist[-1]
+                    eps_s = f" eps {eps:.2f}" if np.isfinite(eps) else ""
+                    print(f"[cluster {cid}] round {t+1}/{flcfg.rounds} "
+                          f"loss {hist[-1]:.5f} "
+                          f"sim_t {sim_hist[-1]:.1f}s{eps_s}")
+                executed += 1
+                stopped = (stop_after_rounds is not None
+                           and executed >= stop_after_rounds)
+                if checkpoint_path is not None and writer and (
+                        (t + 1) % max(checkpoint_every, 1) == 0
+                        or t + 1 == flcfg.rounds or stopped):
+                    _save(cid, params, sstate, hist, sim_hist, eps_hist,
+                          t + 1)
+                if stopped:
+                    break
         results[cid] = FLResult(forecaster.params_to_numpy(params),
                                 np.array(hist), cents, assigns,
                                 held_ids if len(held_ids) else None,

@@ -23,6 +23,7 @@ from typing import Callable, Dict, Iterator, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.data.synthetic import STEPS_PER_DAY
 from repro_torch.data import synthetic as _synthetic
 
@@ -243,9 +244,11 @@ class ClientWindowProvider:
         Returns ``(x, y, counts)`` with x: (m, n_win_max, L, 1),
         y: (m, n_win_max, H), counts: (m,) float32 valid-window counts.
         """
-        counts = self.train_counts[np.asarray(ids)]
-        x, y = self._stack(ids, "x_train", "y_train", counts, self.n_win_max)
-        return x, y, counts.astype(np.float32)
+        with tracing.span("fl.round_batch", clients=len(ids)):
+            counts = self.train_counts[np.asarray(ids)]
+            x, y = self._stack(ids, "x_train", "y_train", counts,
+                               self.n_win_max)
+            return x, y, counts.astype(np.float32)
 
     def test_batch(self, ids):
         """Test windows + per-client (lo, hi) stats, same padding scheme."""

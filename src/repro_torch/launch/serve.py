@@ -32,8 +32,7 @@ from repro_torch.configs.base import FLConfig, ForecasterConfig
 from repro_torch.core import clustering, fedavg, prng
 from repro_torch.data import synthetic, windows
 from repro_torch.models import forecaster
-# re-exported: chip_smoke.py's serving phase seeds its weights with it, and
-# tools/serve_flush_ab.py runs that phase against trees that keep it here
+# re-exported: chip_smoke.py's serving phase seeds its weights with it
 from repro_torch.models.layers import seeded_generator  # noqa: F401
 from repro_torch.serving import (ClusterRouter, ModelRegistry, ServingEngine,
                                  bucket_for)

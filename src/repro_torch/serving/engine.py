@@ -34,6 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.models import forecaster
 from repro_torch.serving.registry import (GLOBAL_SLOT, ModelHandle,
                                           ModelRegistry, dequantize_params,
@@ -67,7 +68,8 @@ class ForecastRequest:
     """One pending forecast; doubles as the caller's result ticket.
 
     ``window`` is the consumer's most recent ``lookback`` RAW watt-hour
-    readings; ``result`` is the (horizon,) kWh forecast once flushed.
+    readings; ``result`` is the (horizon,) kWh forecast once flushed;
+    ``submit_ns`` the tracer's clock at submit, 0 while it is off.
     """
     consumer_id: Any
     window: np.ndarray
@@ -75,6 +77,7 @@ class ForecastRequest:
     hi: float
     slot: Any
     result: Optional[np.ndarray] = None
+    submit_ns: int = 0
 
     @property
     def done(self) -> bool:
@@ -200,6 +203,7 @@ class ServingEngine:
         ticket.  Pass ``history`` on a consumer's first contact so routing
         and normalization use their real range; later requests hit the
         consumer cache."""
+        t0 = tracing.now() if tracing.on() else 0
         w = np.asarray(window, np.float32).reshape(-1)
         slot, lo, hi = self._resolve(consumer_id, w, history)
         handle = self.registry.handle(slot)
@@ -210,6 +214,9 @@ class ServingEngine:
         req = ForecastRequest(consumer_id, w, lo, hi, handle.slot)
         self._queues.setdefault(handle.slot, []).append(req)
         self.stats.requests += 1
+        if t0:
+            req.submit_ns = t0
+            tracing.count("engine.submit", tracing.now() - t0)
         if self.auto_flush and len(self._queues[handle.slot]) >= self.max_batch:
             self.flush(handle.slot)
         return req
@@ -248,7 +255,7 @@ class ServingEngine:
         """(b, L + 2) host rows [window | lo | hi] -> (b, horizon) host kWh;
         one copy to the device, one back."""
         L = handle.cfg.lookback
-        with torch.inference_mode():
+        with tracing.span("engine.forward"), torch.inference_mode():
             t = torch.from_numpy(rows).to(self.device)
             params = (dequantize_params(handle.params)
                       if handle.weights == "int8" else handle.params)
@@ -260,23 +267,29 @@ class ServingEngine:
                    chunk: List[ForecastRequest]) -> FlushStats:
         n = len(chunk)
         b = bucket_for(n, self.min_bucket, self.max_batch)
-        L = handle.cfg.lookback
-        rows = np.zeros((b, L + 2), np.float32)
-        rows[:, L + 1] = 1.0                  # pad rows: scale 1, sliced off
-        for j, r in enumerate(chunk):
-            rows[j, :L] = r.window
-            rows[j, L] = r.lo
-            rows[j, L + 1] = r.hi
-        t0 = time.perf_counter()
-        pred = self._forward(handle, rows)
-        dt = time.perf_counter() - t0
-        for j, r in enumerate(chunk):
-            r.result = pred[j]
-        self.stats.flushes += 1
-        self.stats.busy_s += dt
-        self.stats.by_bucket[b] = self.stats.by_bucket.get(b, 0) + 1
-        return FlushStats(handle.slot, n, b, dt, handle.generation,
-                          handle.weights, tuple(chunk))
+        with tracing.span("engine.flush", slot=handle.slot, rows=n,
+                          bucket=b) as sp:
+            if sp:
+                waits = [sp.t0 - r.submit_ns for r in chunk if r.submit_ns]
+                sp.attrs.update(wait_n=len(waits), wait_sum_ns=sum(waits),
+                                wait_max_ns=max(waits, default=0))
+            L = handle.cfg.lookback
+            rows = np.zeros((b, L + 2), np.float32)
+            rows[:, L + 1] = 1.0              # pad rows: scale 1, sliced off
+            for j, r in enumerate(chunk):
+                rows[j, :L] = r.window
+                rows[j, L] = r.lo
+                rows[j, L + 1] = r.hi
+            t0 = time.perf_counter()
+            pred = self._forward(handle, rows)
+            dt = time.perf_counter() - t0
+            for j, r in enumerate(chunk):
+                r.result = pred[j]
+            self.stats.flushes += 1
+            self.stats.busy_s += dt
+            self.stats.by_bucket[b] = self.stats.by_bucket.get(b, 0) + 1
+            return FlushStats(handle.slot, n, b, dt, handle.generation,
+                              handle.weights, tuple(chunk))
 
     # -------------------------------------------------------------- warmup
     def warmup(self, slots=None) -> int:

@@ -12,11 +12,12 @@ torch = pytest.importorskip("torch")
 
 import dataclasses  # noqa: E402
 
-from repro_torch import optim  # noqa: E402
+from repro_torch import optim, tracing  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
-from repro_torch.configs.base import ForecasterConfig  # noqa: E402
-from repro_torch.core import losses  # noqa: E402
+from repro_torch.configs.base import FLConfig, ForecasterConfig  # noqa: E402
+from repro_torch.core import fedavg, losses  # noqa: E402
 from repro_torch.core.client import local_update  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import lstm_cell, ops, ref  # noqa: E402
 from repro_torch.launch import lm_steps  # noqa: E402
 from repro_torch.models import forecaster  # noqa: E402
@@ -715,3 +716,37 @@ def test_in_place_optimizer_update_equals_the_functional_one_on_card(
         s_in = optim.update_in_place(opt, grads, s_in, p_in, 1e-2)
     for a, b in zip(tree_leaves(p_in), tree_leaves(p_fun)):
         assert torch.equal(a, b)
+
+
+def test_tracer_spans_share_the_device_trace_clock(cuda):
+    """The tracer's spans and Kineto's device events are on one clock: each
+    local step's first layer kernel starts after the step's span opens, and
+    the round's last device work, the copy of its loss to the host that the
+    round's ``fl.wait`` reads, ends before that span closes (0.5 ms of
+    skew allowed)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    series = synthetic.generate_buildings("CA", list(range(4)), days=10)
+    cfg = ForecasterConfig(hidden_dim=16)
+    flcfg = FLConfig(n_clients=4, clients_per_round=4, rounds=1,
+                     batch_size=32, n_clusters=0, seed=1)
+    fedavg.run_federated_training(series, cfg, flcfg, device=cuda)  # build
+    torch.cuda.synchronize()
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fedavg.run_federated_training(series, cfg, flcfg, device=cuda)
+    spans = tracing.snapshot()["spans"]
+    dev = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA)
+    steps = sorted(s[3] for s in spans if s[0] == "fl.local_step")
+    layer = [e for e in dev if "lstm_layer_kernel" in e[2]]
+    assert steps and layer and len(layer) % len(steps) == 0
+    per_step = len(layer) // len(steps)
+    for i, t0 in enumerate(steps):
+        assert layer[i * per_step][0] >= t0
+    (wait,) = [s for s in spans if s[0] == "fl.wait"]
+    # nothing in the round reads the card back before its loss
+    loss_read = next(e for e in dev if "DtoH" in e[2]
+                     and e[0] >= layer[-1][0])
+    assert loss_read[1] <= wait[4] + 500_000
