@@ -21,7 +21,7 @@ llava-next-34b VLM, musicgen-medium's 4 codebooks: a 2 x 2048 prefill
 and 8 decode steps each, kernel route against plain route), then
 trains the forecaster federatedly (the paper's Algorithm 1: 100 clients x
 365 days, every local step's forward one launch of the layer kernel for
-all clients, its backward the plain layer's VJP) on the kernel route
+all clients, its backward one launch of the BPTT kernel) on the kernel route
 against the plain route, trains the same setting again under the privacy
 pipeline (clip, DP noise, the 8-bit ring quantizer and secure aggregation:
 ring-masked == clear bit for bit, epsilon, the stage's device time), runs
@@ -284,9 +284,10 @@ def check_client_axis(seed):
     """Each layer kernel with a leading client axis against the plain layer
     with the same axis, on the same CUDA tensors, fp32 (TOL) and bf16 (the
     layer tolerances of phase 2); then the autograd Function's gradients at
-    the training shape in fp32, within 2e-5 of each gradient's largest
-    magnitude.  Returns the max abs error of each kernel at the training
-    shape in fp32."""
+    the training shape in fp32 (the BPTT kernels), within 2e-5 of each
+    gradient's largest magnitude.  Returns the max abs error of each layer
+    kernel at the training shape in fp32, and of each BPTT kernel's
+    gradients over their largest magnitude."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.gru_cell import gru_layer
@@ -339,9 +340,9 @@ def check_client_axis(seed):
               "tol": TOL[dname], "layer_bf16_tol": LAYER_BF16_TOL,
               "cases": rows})
 
-    # gradients through the autograd Function (forward: the kernel;
-    # backward: the VJP of the plain layer) against autograd through the
-    # plain layer, at the training shape with a zero h0 that needs none
+    # gradients through the autograd Function (forward: the layer kernel;
+    # backward: the BPTT kernel) against autograd through the plain layer,
+    # at the training shape with a zero h0 that needs none
     M, B, I, H = TRAIN_SHAPE
     grads = []
     for name in ("lstm_cell", "gru_cell"):
@@ -369,12 +370,71 @@ def check_client_axis(seed):
                   for a, b in zip(got, want))
         grads.append({"kernel": name, "M": M, "B": B, "T": T, "I": I,
                       "H": H, "max_err_over_grad_max": rel})
+        train_err[name.replace("cell", "bptt")] = rel
         require(rel <= 2e-5, f"{name}: the autograd Function's gradients "
                 f"differ from the plain layer's by {rel:.3g} of their max "
                 "(tol 2e-5)")
     emit({"phase": "layer_function_grads", "dtype": "float32",
           "tol_of_grad_max": 2e-5, "cases": grads})
     return train_err
+
+
+# the BPTT kernels' timing shapes: the fl-sync cells' layers (B=64, T=8,
+# I=1, H=64, fp32), the LSTM at M=100 clients and the GRU at M=1000
+BPTT_SHAPES = (("lstm", 100), ("gru", 1000))
+
+
+def time_bptt(seed):
+    """Phase 2c's timing of the backward at each fl-sync cell's shape: one
+    launch of the BPTT kernel (``_launch_bptt`` on the forward's saved
+    h_seq, the weights' gradients wanted, as in a local step) against the
+    plain VJP it replaced (``ref.plain_vjp`` of the plain layer), beside
+    the bound: three times the layer's multiply-adds (the recompute, dh and
+    the weight gradients) at FP32_FLOPS_PER_S, or the inputs, h_seq, the
+    cotangents and the gradients moved once."""
+    import torch
+    from repro_torch.kernels import _cuda, gru_cell, lstm_cell, ref
+
+    _, B, I, H = TRAIN_SHAPE
+    T = 8
+    gen = torch.Generator().manual_seed(seed + 7)
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=gen) * 0.3).to("cuda")
+
+    out = {}
+    for cell, M in BPTT_SHAPES:
+        G = 4 if cell == "lstm" else 3
+        x, h0 = rnd(M, T, B, I), torch.zeros(M, B, H, device="cuda")
+        w = (rnd(M, I, G * H), rnd(M, H, G * H), rnd(M, G * H))
+        g_h = rnd(M, T, B, H)
+        if cell == "lstm":
+            args, cot = (x, h0, torch.zeros_like(h0), *w), \
+                (g_h, torch.zeros_like(h0))
+            with torch.no_grad():
+                h_seq = lstm_cell._launch(*args)[0]
+            launch, plain_fn = lstm_cell._launch_bptt, ref.lstm_layer_ref
+        else:
+            args, cot = (x, h0, *w), (g_h,)
+            with torch.no_grad():
+                h_seq = gru_cell._launch(*args)
+            launch, plain_fn = gru_cell._launch_bptt, ref.gru_layer_ref
+        needs = (False,) * (len(args) - 3) + (True,) * 3
+        n_in = sum(t.numel() for t in (*args, h_seq, *cot))
+        n_out = sum(t.numel() for t in w)
+        t = {"M": M, "B": B, "T": T, "I": I, "H": H,
+             "plan": _cuda.bptt_plan(f"{cell}_bptt", T, B, I, H, 4)[0]
+             ._asdict(),
+             "bytes": 4 * (n_in + n_out),
+             "flops": 3 * M * 2 * T * B * (I + H) * G * H}
+        with torch.no_grad():
+            t["ms"], t["host_ms"] = time_ms(
+                lambda: launch(*args, h_seq, *cot, needs), 50, 5)
+            t["plain_ms"], t["plain_host_ms"] = time_ms(
+                lambda: ref.plain_vjp(plain_fn, args, needs, cot), 20, 3)
+        out[f"{cell}_bptt"] = _bound(t, FP32_FLOPS_PER_S)
+    emit({"phase": "bptt_timing", "median_of": 50, **out})
+    return out
 
 
 # --------------------------------------------------------------- phase 3
@@ -933,7 +993,8 @@ def lm_slice(seed):
         counts = ops.launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         require(counts == {"lstm_cell": 0, "gru_cell": 0,
-                           "flash_attention": cfg.n_layers},
+                           "flash_attention": cfg.n_layers, "lstm_bptt": 0,
+                           "gru_bptt": 0},
                 f"launch counts {counts} in one prefill + {LM_NEW} decode "
                 f"steps, expected flash_attention = {cfg.n_layers} layers")
         plain = lm_steps.generate(params, {"tokens": prompt}, cfg, LM_NEW,
@@ -1224,7 +1285,8 @@ def lm_families(seed):
                                          attn_impl="kernel")
                 counts = ops.launch_counts()
             require(counts == {"lstm_cell": 0, "gru_cell": 0,
-                               "flash_attention": want_flash},
+                               "flash_attention": want_flash, "lstm_bptt": 0,
+                               "gru_bptt": 0},
                     f"{arch}: launch counts {counts} in one prefill + "
                     f"{FAM_NEW} decode steps, expected flash_attention = "
                     f"{want_flash}")
@@ -1518,9 +1580,12 @@ def train_slice(seed):
     want_eval = math.ceil(summary["heldout_windows"] / EVAL_BATCH)
     require(summary["launches_train"] == {"lstm_cell": want_train,
                                           "gru_cell": 0,
-                                          "flash_attention": 0},
+                                          "flash_attention": 0,
+                                          "lstm_bptt": want_train,
+                                          "gru_bptt": 0},
             f"training launches {summary['launches_train']}, expected "
-            f"lstm_cell = {TRAIN_ROUNDS} rounds x {steps} steps x 1 layer")
+            f"lstm_cell = lstm_bptt = {TRAIN_ROUNDS} rounds x {steps} steps "
+            "x 1 layer")
     require(summary["launches_eval"]["lstm_cell"] == want_eval,
             f"evaluation launches {summary['launches_eval']}, expected "
             f"{want_eval} (one per {EVAL_BATCH}-window batch)")
@@ -1544,7 +1609,8 @@ def train_slice(seed):
     gkern, gplain, gcounts, gargs, gsteps = _train_routes(
         [*GRU_TRAIN, *argv], gcfg)
     require(gcounts == {"lstm_cell": 0, "gru_cell": CHECK_ROUNDS * gsteps * 2,
-                        "flash_attention": 0},
+                        "flash_attention": 0, "lstm_bptt": 0,
+                        "gru_bptt": CHECK_ROUNDS * gsteps * 2},
             f"GRU-2 launch counts {gcounts}, expected {CHECK_ROUNDS} rounds "
             f"x {gsteps} steps x 2 layers")
     gdev = _route_deviation(gkern, gplain)
@@ -1578,7 +1644,8 @@ def train_slice(seed):
                    "heldout_buildings": len(held_ids),
                    "heldout": {k: gheld[k] for k in
                                ("accuracy", "mape", "rmse")}}})
-    return ({"lstm_cell": want_train, "gru_cell": gcounts["gru_cell"]},
+    return ({"lstm_cell": want_train, "gru_cell": gcounts["gru_cell"],
+             "lstm_bptt": want_train, "gru_bptt": gcounts["gru_bptt"]},
             {"wall_s_per_round": summary["wall_s_per_round"],
              "accuracy": held["accuracy"]})
 
@@ -1718,7 +1785,8 @@ def train_dp_slice(seed, phase6):
     want_train = TRAIN_ROUNDS * steps * fcfg.n_layers
     want_eval = math.ceil(hx.shape[0] / EVAL_BATCH)
     require(counts == {"lstm_cell": want_train + want_eval, "gru_cell": 0,
-                       "flash_attention": 0},
+                       "flash_attention": 0, "lstm_bptt": want_train,
+                       "gru_bptt": 0},
             f"phase 7 launch counts {counts}, expected lstm_cell = "
             f"{TRAIN_ROUNDS} x {steps} + {want_eval}")
     hist = r.loss_history
@@ -2997,7 +3065,8 @@ def sharded_prefill(seed, want_logits):
     finally:
         dist.destroy_process_group()
     require(counts == {"lstm_cell": 0, "gru_cell": 0,
-                       "flash_attention": cfg.n_layers},
+                       "flash_attention": cfg.n_layers, "lstm_bptt": 0,
+                       "gru_bptt": 0},
             f"12c launch counts {counts}, expected {cfg.n_layers} flash "
             "launches (one a layer)")
     diff = float((got.float() - want_logits.float()).abs().max())
@@ -3287,6 +3356,7 @@ def main():
     errs = check_kernels(args.seed)
     errs["flash_attention"] = check_flash(args.seed)
     train_errs = check_client_axis(args.seed)
+    bptt_times = time_bptt(args.seed)
 
     # ---- phase 3: the serving slice, LSTM then 2-layer GRU: one launch of
     # the layer kernel per layer per flush
@@ -3448,7 +3518,16 @@ def main():
          "bound_by": times[n]["bound_by"],
          "bound_share": times[n]["bound_share"],
          "library_ms": times[n]["library_ms"], **extra(n)}
-        for n in ops.KERNELS]})
+        for n in ("lstm_cell", "gru_cell", "flash_attention")] + [
+        {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",
+         "replaces": "none: the VJP of the plain layer (ref.plain_vjp), as "
+                     "the JAX package's custom_vjp takes its oracle's",
+         "launches": train_launches.get(n, 0),
+         "max_err_over_grad_max": train_errs[n],
+         **{k: bptt_times[n][k] for k in (
+             "M", "B", "T", "I", "H", "plan", "ms", "host_ms", "plain_ms",
+             "plain_host_ms", "bound_ms", "bound_by", "bound_share")}}
+        for n in ("lstm_bptt", "gru_bptt")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

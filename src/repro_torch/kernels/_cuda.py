@@ -34,7 +34,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-KERNELS = ("lstm_cell", "gru_cell", "flash_attention")
+KERNELS = ("lstm_cell", "gru_cell", "flash_attention", "lstm_bptt",
+           "gru_bptt")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,10 +49,27 @@ _ARGTYPES = {
     "gru_cell": [_P] * 6 + [_I] * 10,
     # B, S, Hq, Hkv, hd, window; scale
     "flash_attention": [_P] * 4 + [_I] * 6 + [_F],
+    # the layer's inputs, its h_seq and the cotangents; the gradients (null
+    # where not wanted); the workspace; M, T, B, I, H, then the BpttPlan:
+    # rows, threads, in_smem
+    "lstm_bptt": [_P] * 16 + [_I] * 8,
+    "gru_bptt": [_P] * 13 + [_I] * 8,
 }
 
 # launches per kernel; each wrapper adds one right after its launch
 LAUNCHES: Counter = Counter()
+
+
+class _Null:
+    """A null pointer among :func:`launch`'s tensors: an output not
+    wanted (a BPTT kernel skips the gradients it is given none for)."""
+
+    @staticmethod
+    def data_ptr():
+        return None
+
+
+NULL = _Null()
 # nvcc's stderr (the ptxas report) of each source compiled by this process
 BUILD_LOG: Dict[str, str] = {}
 
@@ -166,7 +184,7 @@ MAX_ROWS = 4                 # batch rows per block
 X_REGS = 4                   # x values a thread carries to the next step
 MAX_THREADS = 512            # per block (__launch_bounds__ of the kernels)
 MAX_CLIENTS = 65535          # clients of one launch (gridDim.z)
-GATES = {"lstm_cell": 4, "gru_cell": 3}
+GATES = {"lstm_cell": 4, "gru_cell": 3, "lstm_bptt": 4, "gru_bptt": 3}
 ROWS_PER_THREAD = 2          # batch rows of one thread (the kernels take 1, 2)
 K_SPLIT = 4                  # lanes sharing a column's sums (they take 2, 4)
 
@@ -273,6 +291,65 @@ def cell_plan(name: str, B: int, I: int, H: int, itemsize: int, sms: int,
         raise ValueError(f"{name}: launch plan {plan} outside the kernel's "
                          "range")
     return plan
+
+
+# The BPTT kernels (csrc/recurrent_bptt.cuh): one block per client walks
+# its batch rows in chunks of ``rows``; the weights and their fp32
+# gradients sit in shared memory where they fit, else in the block's slice
+# of a workspace in device memory, which also keeps the LSTM's c_t.
+BPTT_ROWS = 32               # batch rows of a chunk, at most
+BPTT_THREADS = 512
+
+
+class BpttPlan(NamedTuple):
+    """How a BPTT kernel is launched: chunks of ``rows`` batch rows,
+    ``threads`` per block, the weights and their gradients in shared
+    memory (``in_smem`` 1) or in the workspace (0)."""
+    rows: int
+    threads: int
+    in_smem: int
+
+
+def bptt_layout(name: str, T: int, I: int, H: int, rows: int, itemsize: int,
+                in_smem: int) -> Tuple[int, int]:
+    """(dynamic shared memory, workspace bytes) of one block
+    (``bptt::Layout`` in csrc/recurrent_bptt.cuh): K = 4 + I + H rows, each
+    rounded up to 4; W at a row stride of 16 mod 128 bytes and the weight
+    gradients in fp32, in shared memory or the workspace; the rows
+    [1 | x | h] by column, the gate sums, dh (and the LSTM's c) in fp32;
+    the LSTM's c_t of every step in the workspace."""
+    gates, lstm = GATES[name], name == "lstm_bptt"
+    h4 = _round_up(H, 4)
+    ka, gw = 4 + _round_up(I, 4) + h4, gates * h4
+    period = 128 // itemsize
+    weights = (_round_up(ka * (gw + (4 - gw) % period) * itemsize, 16)
+               + ka * gw * 4)
+    rh = rows * h4 * 4
+    smem = (ka * (rows + 4) * 4 + rows * (4 * h4 + 4) * 4
+            + rh * (2 if lstm else 1) + (weights if in_smem else 0))
+    work = (0 if in_smem else weights) + (T * rh if lstm else 0)
+    return smem, work
+
+
+@functools.lru_cache(maxsize=1024)
+def bptt_plan(name: str, T: int, B: int, I: int, H: int,
+              itemsize: int) -> Tuple[BpttPlan, int]:
+    """The launch plan of a BPTT call (sizes from :func:`cell_dims`) and
+    its workspace bytes per client: chunks of ``BPTT_ROWS`` rows (B rounded
+    up to 4 where smaller), halved until the buffers fit without the
+    weights; the weights and their gradients in shared memory where all of
+    it fits."""
+    def smem(rows, in_smem):
+        return bptt_layout(name, T, I, H, rows, itemsize, in_smem)[0]
+
+    rows = min(BPTT_ROWS, _round_up(B, 4))
+    while rows > 4 and smem(rows, 0) > SMEM_LIMIT:
+        rows = _round_up(rows // 2, 4)
+    if smem(rows, 0) > SMEM_LIMIT:
+        raise ValueError(f"{name}: I={I}, H={H} outside the kernel's range")
+    in_smem = int(smem(rows, 1) <= SMEM_LIMIT)
+    return (BpttPlan(rows, BPTT_THREADS, in_smem),
+            bptt_layout(name, T, I, H, rows, itemsize, in_smem)[1])
 
 
 def check_inputs(name: str, tensors: Sequence[torch.Tensor],

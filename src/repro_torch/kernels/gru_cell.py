@@ -11,12 +11,15 @@ Tensors on the CPU take the plain versions
 (:func:`repro_torch.kernels.ref.gru_layer_ref`,
 :func:`~repro_torch.kernels.ref.gru_cell_ref`); CUDA tensors launch the
 kernel or raise.  Where autograd records the call, the launch goes through
-:class:`GRULayer`, whose backward is the VJP of the plain layer.
+:class:`GRULayer`, whose backward is one launch of the BPTT kernel
+``csrc/gru_bptt.cu``, the VJP of the layer
+(:func:`repro_torch.kernels.ref.gru_layer_bptt_ref` its plain version).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _cuda, ref
 
 
@@ -37,20 +40,49 @@ def _launch(x_seq, h0, wx, wh, b):
     return h_seq
 
 
+def _launch_bptt(x_seq, h0, wx, wh, b, h_seq, g_h, needs):
+    """One launch of the BPTT kernel on CUDA tensors: the layer's inputs,
+    its output h_seq and its cotangent in; the gradient of each input that
+    ``needs`` flags out, None for the others (no autograd).  Counted by the
+    tracer as ``layer.bptt``."""
+    t0 = tracing.now() if tracing.on() else 0
+    ins = (x_seq, h0, wx, wh, b, h_seq, g_h)
+    T, B, I, H = _cuda.cell_dims("gru_bptt", x_seq, h0)
+    lead = tuple(x_seq.shape[:-3])                 # () or (M,)
+    seq = lead + (T, B, H)
+    _cuda.check_inputs("gru_bptt", ins, [
+        lead + (T, B, I), lead + (B, H), lead + (I, 3 * H),
+        lead + (H, 3 * H), lead + (3 * H,), seq, seq])
+    M = lead[0] if lead else 1
+    plan, work = _cuda.bptt_plan("gru_bptt", T, B, I, H,
+                                 x_seq.element_size())
+    grads = [torch.empty_like(t) if n else _cuda.NULL
+             for t, n in zip(ins[:5], needs)]
+    ws = (torch.empty(M * work, dtype=torch.uint8, device=x_seq.device)
+          if work else _cuda.NULL)
+    _cuda.launch("gru_bptt", (*ins, *grads, ws), (M, T, B, I, H, *plan))
+    _cuda.LAUNCHES["gru_bptt"] += 1
+    if t0:
+        tracing.count("layer.bptt", tracing.now() - t0)
+    return tuple(g if n else None for g, n in zip(grads, needs))
+
+
 class GRULayer(torch.autograd.Function):
-    """The layer kernel as an autograd op: the forward launches it; the
-    backward recomputes the plain layer and returns its VJP for every input
-    that needs one (x_seq too: a second layer feeds on the first)."""
+    """The layer kernel as an autograd op: the forward launches it and
+    keeps its inputs and its h_seq; the backward launches the BPTT kernel
+    for every input that needs a gradient (x_seq too: a second layer feeds
+    on the first)."""
 
     @staticmethod
     def forward(ctx, x_seq, h0, wx, wh, b):
-        ctx.save_for_backward(x_seq, h0, wx, wh, b)
-        return _launch(x_seq, h0, wx, wh, b)
+        h_seq = _launch(x_seq, h0, wx, wh, b)
+        ctx.save_for_backward(x_seq, h0, wx, wh, b, h_seq)
+        return h_seq
 
     @staticmethod
     def backward(ctx, g_h):
-        return ref.plain_vjp(ref.gru_layer_ref, ctx.saved_tensors,
-                             ctx.needs_input_grad, (g_h,))
+        return _launch_bptt(*ctx.saved_tensors, g_h.contiguous(),
+                            ctx.needs_input_grad)
 
 
 def gru_layer(x_seq, h0, wx, wh, b):

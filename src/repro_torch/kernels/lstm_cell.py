@@ -14,14 +14,17 @@ Tensors on the CPU take the plain versions
 :func:`~repro_torch.kernels.ref.lstm_cell_ref`); CUDA tensors launch the
 kernel or raise.  Where autograd records the call (grad enabled and an
 input that requires it), the launch goes through :class:`LSTMLayer`, whose
-backward is the VJP of the plain layer recomputed from the saved inputs,
-as the JAX package's ``custom_vjp`` cell takes the VJP of its oracle
-(``src/repro/kernels/ops.py``).
+backward is one launch of the BPTT kernel ``csrc/lstm_bptt.cu``: the VJP
+of the layer (the one the JAX package's ``custom_vjp`` cell takes of its
+oracle, ``src/repro/kernels/ops.py``), with each step's gates recomputed
+from the saved inputs and output
+(:func:`repro_torch.kernels.ref.lstm_layer_bptt_ref` its plain version).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _cuda, ref
 
 
@@ -43,21 +46,49 @@ def _launch(x_seq, h0, c0, wx, wh, b):
     return h_seq, c_out
 
 
+def _launch_bptt(x_seq, h0, c0, wx, wh, b, h_seq, g_h, g_c, needs):
+    """One launch of the BPTT kernel on CUDA tensors: the layer's inputs,
+    its output h_seq and the cotangents of h_seq and c_T in; the gradient
+    of each input that ``needs`` flags out, None for the others (no
+    autograd).  Counted by the tracer as ``layer.bptt``."""
+    t0 = tracing.now() if tracing.on() else 0
+    ins = (x_seq, h0, c0, wx, wh, b, h_seq, g_h, g_c)
+    T, B, I, H = _cuda.cell_dims("lstm_bptt", x_seq, h0)
+    lead = tuple(x_seq.shape[:-3])                 # () or (M,)
+    state, seq = lead + (B, H), lead + (T, B, H)
+    _cuda.check_inputs("lstm_bptt", ins, [
+        lead + (T, B, I), state, state, lead + (I, 4 * H),
+        lead + (H, 4 * H), lead + (4 * H,), seq, seq, state])
+    M = lead[0] if lead else 1
+    plan, work = _cuda.bptt_plan("lstm_bptt", T, B, I, H,
+                                 x_seq.element_size())
+    grads = [torch.empty_like(t) if n else _cuda.NULL
+             for t, n in zip(ins[:6], needs)]
+    ws = (torch.empty(M * work, dtype=torch.uint8, device=x_seq.device)
+          if work else _cuda.NULL)
+    _cuda.launch("lstm_bptt", (*ins, *grads, ws), (M, T, B, I, H, *plan))
+    _cuda.LAUNCHES["lstm_bptt"] += 1
+    if t0:
+        tracing.count("layer.bptt", tracing.now() - t0)
+    return tuple(g if n else None for g, n in zip(grads, needs))
+
+
 class LSTMLayer(torch.autograd.Function):
-    """The layer kernel as an autograd op: the forward launches it; the
-    backward recomputes the plain layer (the kernel writes every h but only
-    the last c, so there are no per-step residuals to reuse) and returns
-    its VJP for every input that needs one."""
+    """The layer kernel as an autograd op: the forward launches it and
+    keeps its inputs and its h_seq; the backward launches the BPTT kernel,
+    which recomputes each step's gates from them (the forward writes every
+    h but only the last c), for every input that needs a gradient."""
 
     @staticmethod
     def forward(ctx, x_seq, h0, c0, wx, wh, b):
-        ctx.save_for_backward(x_seq, h0, c0, wx, wh, b)
-        return _launch(x_seq, h0, c0, wx, wh, b)
+        h_seq, c_out = _launch(x_seq, h0, c0, wx, wh, b)
+        ctx.save_for_backward(x_seq, h0, c0, wx, wh, b, h_seq)
+        return h_seq, c_out
 
     @staticmethod
     def backward(ctx, g_h, g_c):
-        return ref.plain_vjp(ref.lstm_layer_ref, ctx.saved_tensors,
-                             ctx.needs_input_grad, (g_h, g_c))
+        return _launch_bptt(*ctx.saved_tensors, g_h.contiguous(),
+                            g_c.contiguous(), ctx.needs_input_grad)
 
 
 def lstm_layer(x_seq, h0, c0, wx, wh, b):

@@ -10,11 +10,11 @@ On the CPU they compute the plain versions; on CUDA tensors they launch the
 hand-written kernels (built at first use, see :mod:`._cuda`) or raise, with
 no fallback.  The recurrent layers are differentiable on CUDA tensors: where
 autograd records the call, it goes through a ``torch.autograd.Function``
-(``lstm_cell.LSTMLayer``, ``gru_cell.GRULayer``) whose forward is the
-kernel and whose backward is the VJP of the plain layer, as
-``src/repro/kernels/ops.py`` pairs the Pallas cells with the VJP of their
-oracle.  Flash attention is forward only: on a CUDA tensor that autograd
-would have to record, it raises.
+(``lstm_cell.LSTMLayer``, ``gru_cell.GRULayer``) whose forward is the layer
+kernel and whose backward is one launch of the BPTT kernel
+(``lstm_bptt``, ``gru_bptt``): the VJP that ``src/repro/kernels/ops.py``
+pairs the Pallas cells with, their oracle's.  Flash attention is forward
+only: on a CUDA tensor that autograd would have to record, it raises.
 
 ``launch_counts`` / ``reset_launch_counts`` read and zero the per-kernel
 launch counters, so a run can show that its main path went through the

@@ -2,13 +2,16 @@
 recurrent layers (the cells scanned over a time-major sequence) and causal
 flash attention.
 
-They are the correctness ground truth for the CUDA kernels (``csrc/``), what
-the kernel wrappers compute for tensors on the CPU, and, on the card, what
-the recurrent layers' autograd backward differentiates; the counterpart of
-``src/repro/kernels/ref.py``.  Same layouts as the JAX package: gates
-``[i|f|g|o]`` (LSTM) and ``[z|r|h~]`` (GRU) along the last axis of
-``wx (I, G*H)`` / ``wh (H, G*H)``, one bias, no hidden bias in the GRU;
-attention in ``(B, S, H, hd)``.
+They are the correctness ground truth for the CUDA kernels (``csrc/``) and
+what the kernel wrappers compute for tensors on the CPU; the counterpart of
+``src/repro/kernels/ref.py``.  The recurrent layers' backward kernels
+(``csrc/{lstm,gru}_bptt.cu``) have plain versions here too, written out
+step by step as the kernels walk them (:func:`lstm_layer_bptt_ref`,
+:func:`gru_layer_bptt_ref`), and :func:`plain_vjp` is the yardstick both
+are held to: autograd through the plain layer.  Same layouts as the JAX
+package: gates ``[i|f|g|o]`` (LSTM) and ``[z|r|h~]`` (GRU) along the last
+axis of ``wx (I, G*H)`` / ``wh (H, G*H)``, one bias, no hidden bias in the
+GRU; attention in ``(B, S, H, hd)``.
 
 The cells and layers also take a leading client axis M, one weight set per
 client (the JAX package's ``vmap`` over clients, written out): x
@@ -122,9 +125,9 @@ def plain_vjp(fn, inputs, needs_grad, grads):
     """The vector-Jacobian product of the plain function ``fn`` at
     ``inputs`` for its outputs' cotangents ``grads``: ``fn`` recomputed
     under autograd from detached copies of the inputs, then differentiated.
-    Returns one gradient per input, None where ``needs_grad`` is False; the
-    backward of the kernels' autograd Functions, as the JAX package's
-    ``custom_vjp`` cells take the VJP of their oracle."""
+    Returns one gradient per input, None where ``needs_grad`` is False: the
+    VJP that the JAX package's ``custom_vjp`` cells take of their oracle,
+    and what the card tests hold the BPTT kernels to."""
     inputs = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs_grad)]
     with torch.enable_grad():
         outs = fn(*inputs)
@@ -132,3 +135,102 @@ def plain_vjp(fn, inputs, needs_grad, grads):
     wanted = [t for t, n in zip(inputs, needs_grad) if n]
     got = iter(torch.autograd.grad(outs, wanted, grads, allow_unused=True))
     return tuple(next(got) if n else None for n in needs_grad)
+
+
+def _tr(t):
+    """The last two axes swapped (a batch of matrices transposed)."""
+    return t.transpose(-1, -2)
+
+
+def _grads_out(grads, inputs, needs):
+    """Each gradient rounded once to its input's dtype; None where not
+    needed."""
+    return tuple(g.to(t.dtype) if n else None
+                 for g, t, n in zip(grads, inputs, needs))
+
+
+def lstm_layer_bptt_ref(x_seq, h0, c0, wx, wh, b, h_seq, g_h, g_c,
+                        needs=(True,) * 6):
+    """The VJP of :func:`lstm_layer_ref` by back-propagation through time,
+    as ``csrc/lstm_bptt.cu`` walks it: the layer's inputs, its output h_seq
+    and the cotangents of h_seq and c_T in; the gradients of (x_seq, h0,
+    c0, wx, wh, b), None where ``needs`` is False.  Each step's gates are
+    recomputed from [x_t | h_{t-1}] with h_{t-1} from h_seq, c_t by one
+    forward sweep (rounded to the input dtype each step, as the layer
+    rounds it); then t = T-1 ... 0 in fp32, the rounding passed through as
+    the identity, and each gradient rounded once to the input dtype.
+    Takes a leading client axis as the layer does."""
+    inputs = (x_seq, h0, c0, wx, wh, b)
+    dt = h0.dtype
+    x_seq, h0, c0, wx, wh, b, h_seq, g_h, g_c = (
+        t.float() for t in (x_seq, h0, c0, wx, wh, b, h_seq, g_h, g_c))
+    axis = _steps(x_seq)
+    xs, ghs = x_seq.unbind(axis), g_h.unbind(axis)
+    h_prev = [h0] + list(h_seq.unbind(axis))[:-1]
+    gates, cs, c = [], [], c0
+    for x_t, h_t in zip(xs, h_prev):
+        i, f, g, o = torch.chunk(x_t @ wx + h_t @ wh + _rows(b), 4, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), \
+            torch.sigmoid(o)
+        c = (f * c + i * g).to(dt).float()
+        gates.append((i, f, g, o))
+        cs.append(c)
+    dh, dc = torch.zeros_like(h0), g_c
+    dxs = [None] * len(xs)
+    dwx, dwh, db = torch.zeros_like(wx), torch.zeros_like(wh), \
+        torch.zeros_like(b)
+    for t in reversed(range(len(xs))):
+        i, f, g, o = gates[t]
+        dh = dh + ghs[t]
+        tc = torch.tanh(cs[t])
+        dc = dc + dh * o * (1.0 - tc * tc)
+        c_prev = cs[t - 1] if t else c0
+        dz = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
+                        dc * i * (1.0 - g * g), dh * tc * o * (1.0 - o)],
+                       dim=-1)
+        dxs[t] = dz @ _tr(wx)
+        dwx = dwx + _tr(xs[t]) @ dz
+        dwh = dwh + _tr(h_prev[t]) @ dz
+        db = db + dz.sum(-2)
+        dh, dc = dz @ _tr(wh), dc * f
+    return _grads_out((torch.stack(dxs, dim=axis), dh, dc, dwx, dwh, db),
+                      inputs, needs)
+
+
+def gru_layer_bptt_ref(x_seq, h0, wx, wh, b, h_seq, g_h, needs=(True,) * 5):
+    """The VJP of :func:`gru_layer_ref` by back-propagation through time,
+    as ``csrc/gru_bptt.cu`` walks it: the layer's inputs, its output h_seq
+    and its cotangent in; the gradients of (x_seq, h0, wx, wh, b), None
+    where ``needs`` is False.  Each step's gates are recomputed from x_t
+    and h_{t-1} (from h_seq), the reset gate on the h part of the candidate
+    only, so that part's gradient is the x part's times r; fp32 and the
+    rounding as :func:`lstm_layer_bptt_ref`."""
+    inputs = (x_seq, h0, wx, wh, b)
+    x_seq, h0, wx, wh, b, h_seq, g_h = (
+        t.float() for t in (x_seq, h0, wx, wh, b, h_seq, g_h))
+    H = h0.shape[-1]
+    axis = _steps(x_seq)
+    xs, ghs = x_seq.unbind(axis), g_h.unbind(axis)
+    h_prev = [h0] + list(h_seq.unbind(axis))[:-1]
+    dh = torch.zeros_like(h0)
+    dxs = [None] * len(xs)
+    dwx, dwh, db = torch.zeros_like(wx), torch.zeros_like(wh), \
+        torch.zeros_like(b)
+    for t in reversed(range(len(xs))):
+        zx, zh, hp = xs[t] @ wx + _rows(b), h_prev[t] @ wh, h_prev[t]
+        z = torch.sigmoid(zx[..., :H] + zh[..., :H])
+        r = torch.sigmoid(zx[..., H:2 * H] + zh[..., H:2 * H])
+        nh = zh[..., 2 * H:]
+        n = torch.tanh(zx[..., 2 * H:] + r * nh)
+        dh = dh + ghs[t]
+        dn = dh * (1.0 - z) * (1.0 - n * n)
+        dz_z, dz_r = dh * (hp - n) * z * (1.0 - z), dn * nh * r * (1.0 - r)
+        dzx = torch.cat([dz_z, dz_r, dn], dim=-1)
+        dzh = torch.cat([dz_z, dz_r, dn * r], dim=-1)
+        dxs[t] = dzx @ _tr(wx)
+        dwx = dwx + _tr(xs[t]) @ dzx
+        dwh = dwh + _tr(hp) @ dzh
+        db = db + dzx.sum(-2)
+        dh = dh * z + dzh @ _tr(wh)
+    return _grads_out((torch.stack(dxs, dim=axis), dh, dwx, dwh, db),
+                      inputs, needs)

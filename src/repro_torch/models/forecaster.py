@@ -18,8 +18,9 @@ plain cells one time step at a time (``kernels/ref.py::lstm_layer_ref``,
 Federated training runs every selected client's forward at once: the
 params are client-stacked (a leading M on every leaf, one model per client)
 and x is (M, B, L, input_dim); each layer is still one launch, with the
-clients on the kernel's grid.  Both routes are differentiable (the kernel's
-backward is the VJP of the plain layer).
+clients on the kernel's grid.  Both routes are differentiable: the kernel
+route's backward is one launch per layer of the BPTT kernel
+(``csrc/{lstm,gru}_bptt.cu``), the VJP of the plain layer.
 """
 from __future__ import annotations
 

@@ -28,7 +28,10 @@ Spans: ``fl.round`` (a round of ``run_federated_training``: ``cluster``,
 ``fl.backward``, ``fl.wait`` (the read of the round's loss), ``engine.flush``
 (``slot``, ``rows``, ``bucket`` and the queue wait of its rows from submit
 to the flush's start: ``wait_n``, ``wait_sum_ns``, ``wait_max_ns``) and its
-child ``engine.forward``.  Counter: ``engine.submit``.
+child ``engine.forward``.  Counters: ``engine.submit``; ``layer.bptt`` (the
+host time of a recurrent layer's backward launch, ``kernels/{lstm,gru}_cell
+.py::_launch_bptt``, a counter because autograd runs a CUDA backward on its
+own thread, where the span stack is not the program's).
 """
 from __future__ import annotations
 

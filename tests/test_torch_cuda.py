@@ -61,7 +61,8 @@ def test_kernels_match_plain(cuda, B, I, H, dt):
     g2 = ref.gru_cell_ref(x, h, gp["wx"], gp["wh"], gp["b"])
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"lstm_cell": 1, "gru_cell": 1,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "lstm_bptt": 0,
+                                   "gru_bptt": 0}
     for a, b in ((h1, h2), (c1, c2), (g1, g2)):
         assert a.dtype == dt and a.device == x.device
         torch.testing.assert_close(a.float(), b.float(), rtol=TOL[dt],
@@ -99,7 +100,8 @@ def test_layers_match_plain(cuda, B, I, H, dt, T):
     fused_g = ref.gru_layer_ref(x, h, wx, wh, b, fp32_sums=True)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"lstm_cell": 1, "gru_cell": 1,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "lstm_bptt": 0,
+                                   "gru_bptt": 0}
     tol = LAYER_TOL[dt] if T > 1 else TOL[dt]
     for a, w, f in ((got[0], want[0], fused[0]), (got[1], want[1], fused[1]),
                     (got_g, want_g, fused_g)):
@@ -153,7 +155,8 @@ def test_layer_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         ops.gru_layer(gx, gh, gwx, gwh, gb)
     assert ops.launch_counts() == {"lstm_cell": 0, "gru_cell": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "lstm_bptt": 0,
+                                   "gru_bptt": 0}
 
 
 def test_wrappers_refuse_bad_inputs(cuda):
@@ -389,7 +392,8 @@ def test_client_axis_layers_match_plain(cuda, M, B, I, H, dt):
     fused_g = ref.gru_layer_ref(x, h, wx, wh, b, fp32_sums=True)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"lstm_cell": 1, "gru_cell": 1,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "lstm_bptt": 0,
+                                   "gru_bptt": 0}
     for a, w, f in ((got[0], want[0], fused[0]), (got[1], want[1], fused[1]),
                     (got_g, want_g, fused_g)):
         assert a.dtype == dt and a.shape == w.shape and a.is_cuda
@@ -413,38 +417,116 @@ def test_one_client_is_byte_identical_to_the_unbatched_call(cuda, dt):
                        ops.gru_layer(x[0], h[0], wx[0], wh[0], b[0]))
 
 
-@pytest.mark.parametrize("name", ["lstm", "gru"])
-def test_layer_function_gradients_match_plain(cuda, name):
-    """The autograd Function at the training shape (M = 100, B = 64, T = 8,
-    H = 64, fp32): the kernel's outputs and the gradients of every input
-    that needs one, against autograd through the plain layer, within 2e-5
-    of each gradient's largest magnitude."""
-    g = torch.Generator().manual_seed(5)
+# (cell, M, B, I, H, dtype) of the BPTT kernels' gradient checks; M = 0: no
+# client axis
+GRAD_CASES = [
+    ("lstm", 100, 64, 1, 64, torch.float32),     # fl-sync.lstm-h64.m100
+    ("gru", 1000, 64, 1, 64, torch.float32),     # fl-sync.gru-h64.m1000
+    ("gru", 100, 64, 64, 64, torch.float32),     # the GRU's second layer
+    ("lstm", 3, 64, 4, 128, torch.float32),      # the cluster shapes
+    ("gru", 3, 64, 4, 128, torch.float32),
+    ("lstm", 3, 32, 16, 256, torch.float32),
+    ("gru", 3, 32, 16, 256, torch.float32),
+    ("lstm", 3, 61, 1, 64, torch.float32),       # a prime B
+    ("gru", 3, 61, 1, 64, torch.float32),
+    ("lstm", 0, 37, 3, 50, torch.float32),       # no client axis, ragged
+    ("gru", 0, 37, 50, 50, torch.float32),
+    ("lstm", 1, 64, 1, 64, torch.float32),       # one client
+    ("gru", 1, 64, 1, 64, torch.float32),
+    ("lstm", 100, 64, 1, 64, torch.bfloat16),
+    ("gru", 100, 64, 64, 64, torch.bfloat16),
+    ("lstm", 3, 32, 16, 256, torch.bfloat16),
+]
+
+
+def _case_args(g, dev, dt, name, M, B, I, H, T=8):
     G = 4 if name == "lstm" else 3
-    x, h, c, wx, wh, b = _client_args(g, cuda, torch.float32, 100, 8, 64, 1,
-                                      64, G)
-    h = torch.zeros_like(h)                    # a zero h0 that needs no grad
-    args = (x, h, c, wx, wh, b) if G == 4 else (x, h, wx, wh, b)
-    fn = ops.lstm_layer if G == 4 else ops.gru_layer
-    plain = ref.lstm_layer_ref if G == 4 else ref.gru_layer_ref
-    w = torch.randn(100, 8, 64, 64, generator=g).to(cuda)
+    lead = (M,) if M else ()
+    r = lambda *s: _rand(g, dev, dt, *(lead + s))  # noqa: E731
+    x, h, c = r(T, B, I), torch.zeros(lead + (B, H), device=dev,
+                                      dtype=dt), r(B, H)
+    w = (r(I, G * H), r(H, G * H), r(G * H))
+    return (x, h, c, *w) if G == 4 else (x, h, *w)
+
+
+@pytest.mark.parametrize("name,M,B,I,H,dt", GRAD_CASES,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_layer_function_gradients_match_plain(cuda, name, M, B, I, H, dt):
+    """The autograd Function: the forward kernel's outputs and, from the
+    BPTT kernel, the gradient of every input that needs one (all but a zero
+    h0), against autograd through the plain layer, within 2e-5 of each
+    gradient's largest magnitude in fp32; one launch of each kernel.  In
+    bf16 within LAYER_TOL of that largest magnitude (the plain cell rounds
+    every op to bf16), and within TOL of the plain BPTT
+    (``ref.*_layer_bptt_ref``) on the same inputs and h_seq, the kernel's
+    own function."""
+    g = torch.Generator().manual_seed(M * 7 + B + I + H)
+    args = _case_args(g, cuda, dt, name, M, B, I, H)
+    h = args[1]
+    fn = ops.lstm_layer if name == "lstm" else ops.gru_layer
+    plain = ref.lstm_layer_ref if name == "lstm" else ref.gru_layer_ref
+    w = torch.randn(((M,) if M else ()) + (8, B, H), generator=g).to(cuda, dt)
 
     def grads(f):
         leaves = [t.clone().requires_grad_(t is not h) for t in args]
         out = f(*leaves)
-        out = out[0] if G == 4 else out
+        out = out[0] if name == "lstm" else out
         wanted = [t for t in leaves if t.requires_grad]
         return out.detach(), torch.autograd.grad((out * w).sum(), wanted)
 
     ops.reset_launch_counts()
     out, got = grads(fn)
-    assert ops.launch_counts()[f"{name}_cell"] == 1
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {
+        "lstm_cell": int(name == "lstm"), "gru_cell": int(name == "gru"),
+        "flash_attention": 0, "lstm_bptt": int(name == "lstm"),
+        "gru_bptt": int(name == "gru")}
     want_out, want = grads(plain)
-    torch.testing.assert_close(out, want_out, rtol=2e-5, atol=2e-5)
     assert len(got) == len(args) - 1
-    for a, bb in zip(got, want):
-        scale = float(bb.abs().max())
-        assert float((a - bb).abs().max()) <= 2e-5 * scale
+    if dt == torch.float32:
+        torch.testing.assert_close(out, want_out, rtol=2e-5, atol=2e-5)
+        for a, bb in zip(got, want):
+            assert a.dtype == dt and a.shape == bb.shape
+            assert float((a - bb).abs().max()) <= 2e-5 * float(bb.abs().max())
+        return
+    cot = (w, torch.zeros_like(args[2])) if name == "lstm" else (w,)
+    bptt = ref.lstm_layer_bptt_ref if name == "lstm" else \
+        ref.gru_layer_bptt_ref
+    needs = tuple(t is not h for t in args)
+    own = [t for t in bptt(*args, out, *cot, needs) if t is not None]
+    for a, bb, o in zip(got, want, own):
+        assert a.dtype == dt and a.shape == bb.shape
+        a, bb, o = a.float(), bb.float(), o.float()
+        assert float((a - bb).abs().max()) <= LAYER_TOL[dt] * float(
+            bb.abs().max())
+        assert float((a - o).abs().max()) <= TOL[dt] * float(o.abs().max())
+
+
+@pytest.mark.parametrize("name,M", [("lstm", 100), ("gru", 1000)])
+def test_bptt_launches_are_bit_identical(cuda, name, M):
+    """Two launches of the BPTT kernel on the same inputs give the same
+    bits: the weight gradients are summed in a fixed order, no atomics."""
+    from repro_torch.kernels import gru_cell
+
+    g = torch.Generator().manual_seed(M)
+    args = _case_args(g, cuda, torch.float32, name, M, 64, 1, 64)
+    with torch.no_grad():
+        fn = ops.lstm_layer if name == "lstm" else ops.gru_layer
+        out = fn(*args)
+        h_seq = out[0] if name == "lstm" else out
+        g_h = torch.randn(h_seq.shape, generator=g).to(cuda)
+        if name == "lstm":
+            cot = (h_seq, g_h, torch.randn(args[2].shape, generator=g)
+                   .to(cuda))
+            run = lambda: lstm_cell._launch_bptt(  # noqa: E731
+                *args, *cot, (True,) * 6)
+        else:
+            run = lambda: gru_cell._launch_bptt(  # noqa: E731
+                *args, h_seq, g_h, (True,) * 5)
+        first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("cell,n_layers", [("lstm", 1), ("gru", 2)])
@@ -467,6 +549,7 @@ def test_local_update_on_card_both_routes(cuda, cell, n_layers):
     kern, kl = local_update(card_params, on(x), on(y), on(bidx), 0.05, cfg,
                             loss, "kernel", 0.1)
     assert ops.launch_counts()[f"{cell}_cell"] == 4 * n_layers
+    assert ops.launch_counts()[f"{cell}_bptt"] == 4 * n_layers
     plain, pl = local_update(card_params, on(x), on(y), on(bidx), 0.05, cfg,
                              loss, "torch", 0.1)
     cpu, cl = local_update(params, x, y, bidx, 0.05, cfg, loss, "kernel", 0.1)

@@ -284,7 +284,8 @@ def test_cpu_wrappers_launch_nothing():
                               "b": f(3 * H)})
     assert hs.shape == gs.shape == (4, B, H) and c.shape == (B, H)
     assert ops.launch_counts() == {"lstm_cell": 0, "gru_cell": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "lstm_bptt": 0,
+                                   "gru_bptt": 0}
 
 
 def test_cuda_path_refuses_a_cpu_cuda_mix():

@@ -132,12 +132,15 @@ def _grads(fn, args, needs):
 def test_autograd_functions_match_autograd_through_the_plain_layer(
         M, monkeypatch):
     """LSTMLayer / GRULayer (the kernels' autograd ops) against autograd
-    through the plain layer.  On the CPU the launch is replaced by the plain
-    layer, so this checks the wiring: the saved inputs, the outputs'
-    gradients in, one gradient per input that needs it (None for a zero h0
-    that does not), and the x_seq gradient a second layer needs."""
+    through the plain layer.  On the CPU the forward launch is replaced by
+    the plain layer and the backward launch by the plain BPTT, so this
+    checks the wiring: the saved inputs and output, the outputs' gradients
+    in, one gradient per input that needs it (None for a zero h0 that does
+    not), and the x_seq gradient a second layer needs."""
     monkeypatch.setattr(lstm_cell, "_launch", ref.lstm_layer_ref)
     monkeypatch.setattr(gru_cell, "_launch", ref.gru_layer_ref)
+    monkeypatch.setattr(lstm_cell, "_launch_bptt", ref.lstm_layer_bptt_ref)
+    monkeypatch.setattr(gru_cell, "_launch_bptt", ref.gru_layer_bptt_ref)
     lead = (M,) if M else ()
     T, B, I, H = 5, 4, 3, 8
     g = torch.Generator().manual_seed(M)
@@ -172,6 +175,43 @@ def test_autograd_functions_match_autograd_through_the_plain_layer(
                              _grads(two(ref.gru_layer_ref), args, needs))
     for a, b in zip(grads, want):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("M", [0, 3])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_plain_bptt_matches_autograd_through_the_plain_layer(cell, M):
+    """``ref.lstm_layer_bptt_ref`` / ``ref.gru_layer_bptt_ref``, the plain
+    versions of the BPTT kernels, walked step by step from the saved
+    h_seq, against autograd through the plain layer (``ref.plain_vjp``) at
+    rtol / atol 1e-6, with and without the client axis; an input that
+    needs no gradient gets None."""
+    lead = (M,) if M else ()
+    T, B, I, H = 5, 4, 3, 8
+    G = 4 if cell == "lstm" else 3
+    g = torch.Generator().manual_seed(M + G)
+    r = lambda *s: torch.randn(lead + s, generator=g) * 0.3  # noqa: E731
+    x, h, c = r(T, B, I), r(B, H), r(B, H)
+    w = (r(I, G * H), r(H, G * H), r(G * H))
+    g_h = r(T, B, H) * 3
+    if cell == "lstm":
+        args, cot = (x, h, c, *w), (g_h, r(B, H) * 3)
+        h_seq = ref.lstm_layer_ref(*args)[0]
+        fn, bptt = ref.lstm_layer_ref, ref.lstm_layer_bptt_ref
+    else:
+        args, cot = (x, h, *w), (g_h,)
+        h_seq = ref.gru_layer_ref(*args)
+        fn, bptt = ref.gru_layer_ref, ref.gru_layer_bptt_ref
+    for needs in ((True,) * len(args), (False, False) + (True,) * (len(args)
+                                                                 - 2)):
+        got = bptt(*args, h_seq, *cot, needs)
+        want = ref.plain_vjp(fn, args, needs, cot)
+        assert len(got) == len(args)
+        for a, b, n in zip(got, want, needs):
+            if not n:
+                assert a is None and b is None
+                continue
+            assert a.shape == b.shape and a.dtype == b.dtype
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
 def test_cpu_wrappers_never_launch(monkeypatch):
