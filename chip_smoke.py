@@ -2384,6 +2384,8 @@ def _free_cuda():
     import gc
 
     import torch
+    from repro_torch.core import client
+    client.clear_step_graphs()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2641,6 +2643,7 @@ def lm_train_slice(seed):
     in place), no flash launch; then (a2) bf16 against fp32, (b) every
     family's step against the CPU, (c) local SGD.  Prints one JSON line a
     part; returns the main path's line (its flash launches: 0)."""
+    _free_cuda()            # the forecaster phases' graphed step sets
     main_path = _train_main_path(seed)
     emit({"phase": "lm_train", "part": "main", **main_path})
     emit({"phase": "lm_train", "part": "bf16_vs_fp32",
@@ -3175,14 +3178,17 @@ def sharded_train(seed, main):
 # (a) the AST lint of the port's tree; (b) the round's hot-path guards at
 # train-lstm's shape (ForecasterConfig(), M = 100 clients, B = 64, the
 # kernel route; the local steps of a round cut 411 -> FLCHECK_STEPS), 3
-# rounds after a warm-up, under the reference's guard stack (clip, noise,
+# rounds after a warm-up (the graphed local step's captures,
+# core/client.py), under the reference's guard stack (clip, noise,
 # 4-bit quantize) and under train-lstm-dp's (clip 1.0, noise 0.5, the 8-bit
 # ring, secure aggregation); (c) the taint proofs of the local round and of
 # the semi-sync dispatch under the full stack at M = 100 on the kernel
 # route; (d) the cost audit against the committed baseline (its mesh paths
 # on 8 gloo ranks that the CLI spawns on the card), on this machine's
-# torch.  (a) and (d) run as processes of their own while (b) and (c) run
-# here.
+# torch; (e) a local round at (b)'s shape on the graphed local step
+# (core/client.py), which the guards of (b) and (c) cannot see, since their
+# dispatch modes rule the graphs out.  (a) and (d) run as processes of
+# their own while (b), (c) and (e) run here.
 FLCHECK_M, FLCHECK_B, FLCHECK_STEPS, FLCHECK_ROUNDS = 100, 64, 8, 3
 FLCHECK_LIMIT_S = 600
 BASELINE = "src/repro_torch/analysis/baselines/round_costs.json"
@@ -3206,6 +3212,57 @@ def _finish(proc, t0, label):
     require(proc.returncode == 0,
             f"13 {label}: exit {proc.returncode}\n{out[-4000:]}")
     return out, time.monotonic() - t0
+
+
+def graphed_round_guard(fcfg):
+    """Phase 13e: a local round at (b)'s shape on the graphed local step,
+    warmed up (its captures), then again under
+    ``set_sync_debug_mode("error")`` alone: no sync, no capture, every step
+    a replay, results free of autograd history, and locals and losses
+    bit-equal to the eager kernel loop's.  Returns its record."""
+    import torch
+    from repro_torch import tracing
+    from repro_torch.analysis import recompile, taint
+    from repro_torch.core import client, losses
+    from repro_torch.models.layers import tree_leaves
+
+    t0 = time.monotonic()
+    params, x, y, bidx, *_ = taint.round_inputs(
+        fcfg, FLCHECK_M, torch.device("cuda"), n_win=256,
+        steps=FLCHECK_STEPS, batch=FLCHECK_B)
+    args = (x, y, bidx, 0.05, fcfg, losses.make_loss("mse"), "kernel", 0.0)
+    require(client.graphs_engage(x.device, "kernel"),
+            "13e: the graphed route does not engage")
+    client.local_update(params, *args)
+    counter = recompile._CaptureCounter()
+    torch.cuda.synchronize()
+    with counter.active(), tracing.recording():
+        tracing.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            g_loc, g_loss = client.local_update(params, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        steps = tracing.snapshot()["counters"]
+    engage, client.graphs_engage = client.graphs_engage, lambda *a: False
+    try:
+        e_loc, e_loss = client.local_update(params, *args)
+    finally:
+        client.graphs_engage = engage
+    torch.cuda.synchronize()
+    replays = steps.get("fl.step_graph", [0])[0]
+    require(counter.n == 0 and "fl.step_graph.capture" not in steps
+            and replays == FLCHECK_STEPS,
+            f"13e: {counter.n} captures, counters {steps}")
+    got = tree_leaves(g_loc) + [g_loss]
+    require(not any(t.requires_grad for t in got),
+            "13e: the graphed round's results carry autograd history")
+    require(all(torch.equal(a, b)
+                for a, b in zip(got, tree_leaves(e_loc) + [e_loss])),
+            "13e: the graphed round differs from the eager kernel loop")
+    return {"replays": replays, "captures": counter.n,
+            "sync_debug_mode": "error", "bit_equal_to_eager": True,
+            "wall_s": time.monotonic() - t0}
 
 
 def flcheck_slice(seed):
@@ -3276,6 +3333,7 @@ def flcheck_slice(seed):
             and counts["flash_attention"] == 0,
             f"13 launch counts {counts}")
     out["taint"] = proofs
+    out["graphed_round"] = graphed_round_guard(fcfg)
     # (a) and (d), read
     text, wall = _finish(lint, t0, "lint")
     found = re.search(r"flcheck lint: (\d+) files, (\d+) findings, "

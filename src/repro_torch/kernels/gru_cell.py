@@ -23,8 +23,9 @@ from repro_torch import tracing
 from repro_torch.kernels import _cuda, ref
 
 
-def _launch(x_seq, h0, wx, wh, b):
-    """One launch of the layer kernel on CUDA tensors (no autograd)."""
+def _launch(x_seq, h0, wx, wh, b, out=None):
+    """One launch of the layer kernel on CUDA tensors (no autograd).
+    ``out``: a preallocated h_seq to write, else a new tensor."""
     args = (x_seq, h0, wx, wh, b)
     T, B, I, H = _cuda.cell_dims("gru_cell", x_seq, h0)
     lead = tuple(x_seq.shape[:-3])                 # () or (M,)
@@ -34,17 +35,21 @@ def _launch(x_seq, h0, wx, wh, b):
     M = lead[0] if lead else 1
     plan = _cuda.cell_plan("gru_cell", B, I, H, x_seq.element_size(),
                            _cuda.sm_count(x_seq.device.index), M=M)
-    h_seq = torch.empty(lead + (T, B, H), dtype=h0.dtype, device=h0.device)
+    h_seq = out if out is not None else torch.empty(
+        lead + (T, B, H), dtype=h0.dtype, device=h0.device)
     _cuda.launch("gru_cell", (*args, h_seq), (M, T, B, I, H, *plan))
     _cuda.LAUNCHES["gru_cell"] += 1
     return h_seq
 
 
-def _launch_bptt(x_seq, h0, wx, wh, b, h_seq, g_h, needs):
+def _launch_bptt(x_seq, h0, wx, wh, b, h_seq, g_h, needs, out=None,
+                 work=None):
     """One launch of the BPTT kernel on CUDA tensors: the layer's inputs,
     its output h_seq and its cotangent in; the gradient of each input that
-    ``needs`` flags out, None for the others (no autograd).  Counted by the
-    tracer as ``layer.bptt``."""
+    ``needs`` flags out, None for the others (no autograd).  ``out`` (the
+    five gradients, preallocated where needed) and ``work`` (the
+    workspace) are written instead of new tensors where given.  Counted by
+    the tracer as ``layer.bptt``."""
     t0 = tracing.now() if tracing.on() else 0
     ins = (x_seq, h0, wx, wh, b, h_seq, g_h)
     T, B, I, H = _cuda.cell_dims("gru_bptt", x_seq, h0)
@@ -54,13 +59,14 @@ def _launch_bptt(x_seq, h0, wx, wh, b, h_seq, g_h, needs):
         lead + (T, B, I), lead + (B, H), lead + (I, 3 * H),
         lead + (H, 3 * H), lead + (3 * H,), seq, seq])
     M = lead[0] if lead else 1
-    plan, work = _cuda.bptt_plan("gru_bptt", T, B, I, H,
+    plan, size = _cuda.bptt_plan("gru_bptt", T, B, I, H,
                                  x_seq.element_size())
-    grads = [torch.empty_like(t) if n else _cuda.NULL
-             for t, n in zip(ins[:5], needs)]
-    ws = (torch.empty(M * work, dtype=torch.uint8, device=x_seq.device)
-          if work else _cuda.NULL)
-    _cuda.launch("gru_bptt", (*ins, *grads, ws), (M, T, B, I, H, *plan))
+    grads = [(torch.empty_like(t) if out is None else out[i]) if n
+             else _cuda.NULL for i, (t, n) in enumerate(zip(ins[:5], needs))]
+    if work is None:
+        work = (torch.empty(M * size, dtype=torch.uint8,
+                            device=x_seq.device) if size else _cuda.NULL)
+    _cuda.launch("gru_bptt", (*ins, *grads, work), (M, T, B, I, H, *plan))
     _cuda.LAUNCHES["gru_bptt"] += 1
     if t0:
         tracing.count("layer.bptt", tracing.now() - t0)
@@ -85,17 +91,34 @@ class GRULayer(torch.autograd.Function):
                             ctx.needs_input_grad)
 
 
-def gru_layer(x_seq, h0, wx, wh, b):
+def gru_layer(x_seq, h0, wx, wh, b, out=None):
     """Fused GRU layer.  x_seq: (T, B, I) time-major; h0: (B, H);
     wx: (I, 3H) [z|r|h~]; wh: (H, 3H); b: (3H,); or each with a leading
     client axis M.  Returns h_seq (T, B, H) or (M, T, B, H) in the input
-    dtype."""
+    dtype, written into ``out`` (a preallocated h_seq, for a call that
+    autograd does not record) where given."""
     args = (x_seq, h0, wx, wh, b)
     if all(t.device.type == "cpu" for t in args):
-        return ref.gru_layer_ref(*args)
+        got = ref.gru_layer_ref(*args)
+        return got if out is None else ref.into(out, got)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if out is not None:
+            raise ValueError("gru_layer: out= on a call autograd records")
         return GRULayer.apply(*args)
-    return _launch(*args)
+    return _launch(*args, out=out)
+
+
+def gru_layer_bptt(x_seq, h0, wx, wh, b, h_seq, g_h, needs, out=None,
+                   work=None):
+    """The layer's VJP called directly, as :class:`GRULayer`'s backward
+    launches it: the arguments, ``out`` and ``work`` of
+    :func:`_launch_bptt`; on the CPU the plain version
+    (:func:`repro_torch.kernels.ref.gru_layer_bptt_ref`)."""
+    args = (x_seq, h0, wx, wh, b, h_seq, g_h)
+    if all(t.device.type == "cpu" for t in args):
+        got = ref.gru_layer_bptt_ref(*args, needs)
+        return got if out is None else ref.into(out, got)
+    return _launch_bptt(*args, needs, out=out, work=work)
 
 
 def gru_cell(x, h, wx, wh, b):

@@ -28,8 +28,9 @@ from repro_torch import tracing
 from repro_torch.kernels import _cuda, ref
 
 
-def _launch(x_seq, h0, c0, wx, wh, b):
-    """One launch of the layer kernel on CUDA tensors (no autograd)."""
+def _launch(x_seq, h0, c0, wx, wh, b, out=None):
+    """One launch of the layer kernel on CUDA tensors (no autograd).
+    ``out``: preallocated ``(h_seq, c_out)`` to write, else new tensors."""
     args = (x_seq, h0, c0, wx, wh, b)
     T, B, I, H = _cuda.cell_dims("lstm_cell", x_seq, h0)
     lead = tuple(x_seq.shape[:-3])                 # () or (M,)
@@ -39,18 +40,23 @@ def _launch(x_seq, h0, c0, wx, wh, b):
     M = lead[0] if lead else 1
     plan = _cuda.cell_plan("lstm_cell", B, I, H, x_seq.element_size(),
                            _cuda.sm_count(x_seq.device.index), M=M)
-    h_seq = torch.empty(lead + (T, B, H), dtype=h0.dtype, device=h0.device)
-    c_out = torch.empty_like(c0)
+    h_seq, c_out = out or (
+        torch.empty(lead + (T, B, H), dtype=h0.dtype, device=h0.device),
+        torch.empty_like(c0))
     _cuda.launch("lstm_cell", (*args, h_seq, c_out), (M, T, B, I, H, *plan))
     _cuda.LAUNCHES["lstm_cell"] += 1
     return h_seq, c_out
 
 
-def _launch_bptt(x_seq, h0, c0, wx, wh, b, h_seq, g_h, g_c, needs):
+def _launch_bptt(x_seq, h0, c0, wx, wh, b, h_seq, g_h, g_c, needs,
+                 out=None, work=None):
     """One launch of the BPTT kernel on CUDA tensors: the layer's inputs,
     its output h_seq and the cotangents of h_seq and c_T in; the gradient
     of each input that ``needs`` flags out, None for the others (no
-    autograd).  Counted by the tracer as ``layer.bptt``."""
+    autograd).  ``out`` (the six gradients, preallocated where needed) and
+    ``work`` (the workspace, ``_cuda.bptt_plan``'s bytes a client) are
+    written instead of new tensors where given.  Counted by the tracer as
+    ``layer.bptt``."""
     t0 = tracing.now() if tracing.on() else 0
     ins = (x_seq, h0, c0, wx, wh, b, h_seq, g_h, g_c)
     T, B, I, H = _cuda.cell_dims("lstm_bptt", x_seq, h0)
@@ -60,13 +66,14 @@ def _launch_bptt(x_seq, h0, c0, wx, wh, b, h_seq, g_h, g_c, needs):
         lead + (T, B, I), state, state, lead + (I, 4 * H),
         lead + (H, 4 * H), lead + (4 * H,), seq, seq, state])
     M = lead[0] if lead else 1
-    plan, work = _cuda.bptt_plan("lstm_bptt", T, B, I, H,
+    plan, size = _cuda.bptt_plan("lstm_bptt", T, B, I, H,
                                  x_seq.element_size())
-    grads = [torch.empty_like(t) if n else _cuda.NULL
-             for t, n in zip(ins[:6], needs)]
-    ws = (torch.empty(M * work, dtype=torch.uint8, device=x_seq.device)
-          if work else _cuda.NULL)
-    _cuda.launch("lstm_bptt", (*ins, *grads, ws), (M, T, B, I, H, *plan))
+    grads = [(torch.empty_like(t) if out is None else out[i]) if n
+             else _cuda.NULL for i, (t, n) in enumerate(zip(ins[:6], needs))]
+    if work is None:
+        work = (torch.empty(M * size, dtype=torch.uint8,
+                            device=x_seq.device) if size else _cuda.NULL)
+    _cuda.launch("lstm_bptt", (*ins, *grads, work), (M, T, B, I, H, *plan))
     _cuda.LAUNCHES["lstm_bptt"] += 1
     if t0:
         tracing.count("layer.bptt", tracing.now() - t0)
@@ -91,17 +98,34 @@ class LSTMLayer(torch.autograd.Function):
                             g_c.contiguous(), ctx.needs_input_grad)
 
 
-def lstm_layer(x_seq, h0, c0, wx, wh, b):
+def lstm_layer(x_seq, h0, c0, wx, wh, b, out=None):
     """Fused LSTM layer.  x_seq: (T, B, I) time-major; h0, c0: (B, H);
     wx: (I, 4H) [i|f|g|o]; wh: (H, 4H); b: (4H,); or each with a leading
     client axis M.  Returns (h_seq (T, B, H) or (M, T, B, H), c_T) in the
-    input dtype."""
+    input dtype, written into ``out`` (preallocated ``(h_seq, c_T)``, for
+    a call that autograd does not record) where given."""
     args = (x_seq, h0, c0, wx, wh, b)
     if all(t.device.type == "cpu" for t in args):
-        return ref.lstm_layer_ref(*args)
+        got = ref.lstm_layer_ref(*args)
+        return got if out is None else ref.into(out, got)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if out is not None:
+            raise ValueError("lstm_layer: out= on a call autograd records")
         return LSTMLayer.apply(*args)
-    return _launch(*args)
+    return _launch(*args, out=out)
+
+
+def lstm_layer_bptt(x_seq, h0, c0, wx, wh, b, h_seq, g_h, g_c, needs,
+                    out=None, work=None):
+    """The layer's VJP called directly, as :class:`LSTMLayer`'s backward
+    launches it: the arguments, ``out`` and ``work`` of
+    :func:`_launch_bptt`; on the CPU the plain version
+    (:func:`repro_torch.kernels.ref.lstm_layer_bptt_ref`)."""
+    args = (x_seq, h0, c0, wx, wh, b, h_seq, g_h, g_c)
+    if all(t.device.type == "cpu" for t in args):
+        got = ref.lstm_layer_bptt_ref(*args, needs)
+        return got if out is None else ref.into(out, got)
+    return _launch_bptt(*args, needs, out=out, work=work)
 
 
 def lstm_cell(x, h, c, wx, wh, b):

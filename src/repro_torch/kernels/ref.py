@@ -137,6 +137,18 @@ def plain_vjp(fn, inputs, needs_grad, grads):
     return tuple(next(got) if n else None for n in needs_grad)
 
 
+def into(out, got):
+    """A plain version's results ``got`` copied into the preallocated
+    ``out`` that a launch would write (a tensor, or a tuple with None
+    where nothing is wanted); returns ``out``."""
+    if isinstance(out, torch.Tensor):
+        return out.copy_(got)
+    for o, g in zip(out, got):
+        if o is not None:
+            o.copy_(g)
+    return out
+
+
 def _tr(t):
     """The last two axes swapped (a batch of matrices transposed)."""
     return t.transpose(-1, -2)

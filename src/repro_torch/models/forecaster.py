@@ -20,7 +20,10 @@ params are client-stacked (a leading M on every leaf, one model per client)
 and x is (M, B, L, input_dim); each layer is still one launch, with the
 clients on the kernel's grid.  Both routes are differentiable: the kernel
 route's backward is one launch per layer of the BPTT kernel
-(``csrc/{lstm,gru}_bptt.cu``), the VJP of the plain layer.
+(``csrc/{lstm,gru}_bptt.cu``), the VJP of the plain layer.  The graphed
+local step (``core/client.py``) runs the same forward and backward into
+preallocated buffers, with autograd only over the head:
+:func:`layers_forward`, :func:`head_vjp`, :func:`layers_bptt`.
 """
 from __future__ import annotations
 
@@ -31,8 +34,8 @@ from torch import nn
 
 from repro_torch.configs.base import ForecasterConfig
 from repro_torch.kernels import ref
-from repro_torch.kernels.gru_cell import gru_layer
-from repro_torch.kernels.lstm_cell import lstm_layer
+from repro_torch.kernels.gru_cell import gru_layer, gru_layer_bptt
+from repro_torch.kernels.lstm_cell import lstm_layer, lstm_layer_bptt
 from repro_torch.models.layers import dense_init, tree_from_numpy
 
 # "kernel": one fused CUDA layer call per layer; "torch": the plain cells,
@@ -102,6 +105,65 @@ def params_to_numpy(params) -> Dict:
 
 
 # ------------------------------------------------------------------ forward
+def time_major(x, out=None):
+    """x (..., B, L, I) -> the layers' contiguous time-major x_seq
+    (..., L, B, I), written into ``out`` where given."""
+    t = x.transpose(-3, -2)
+    return t.contiguous() if out is None else out.copy_(t)
+
+
+def last_step(h_seq):
+    """The last time step of a time-major h_seq (..., L, B, H): a view."""
+    return h_seq.select(-3, -1)
+
+
+def layers_forward(layers, x_seq, h0, cell: str, cell_impl: str = "kernel",
+                   out=None):
+    """The recurrent layers over a time-major x_seq from the zero state h0
+    (every layer's h0, and c0 too): each layer's h_seq the next one's
+    input.  Returns the top layer's h_seq.  ``out``: each layer's
+    preallocated output, ``(h_seq, c_T)`` (LSTM) or h_seq (GRU), which the
+    kernel route writes where autograd records nothing (the graphed local
+    step, ``core/client.py``)."""
+    h_seq = x_seq
+    for l, p in enumerate(layers):
+        w = (p["wx"], p["wh"], p["b"])
+        kw = {} if out is None else {"out": out[l]}
+        if cell == "lstm":
+            layer = lstm_layer if cell_impl == "kernel" else ref.lstm_layer_ref
+            h_seq, _ = layer(h_seq, h0, h0, *w, **kw)
+        else:
+            layer = gru_layer if cell_impl == "kernel" else ref.gru_layer_ref
+            h_seq = layer(h_seq, h0, *w, **kw)
+    return h_seq
+
+
+def layers_bptt(layers, x_seq, h0, cell: str, h_seqs, g_hs, g_c, grads,
+                work):
+    """The kernel route's backward through :func:`layers_forward`, into
+    preallocated buffers: what autograd chains through ``LSTMLayer`` /
+    ``GRULayer`` on the eager route, one BPTT launch a layer, top layer
+    first.  ``h_seqs``: each layer's h_seq; ``g_hs``: their cotangents,
+    the top layer's given, each lower one written as the dx of the layer
+    above; ``g_c``: the cotangent of each LSTM layer's unused c_T (zero;
+    None for the GRU); ``grads``: each layer's ``{"wx", "wh", "b"}``
+    gradients, written; ``work``: each layer's BPTT workspace.  No
+    gradient of x_seq or of the zero state."""
+    for l in reversed(range(len(layers))):
+        p, g = layers[l], grads[l]
+        inp = x_seq if l == 0 else h_seqs[l - 1]
+        dx = g_hs[l - 1] if l else None
+        w, gw = (p["wx"], p["wh"], p["b"]), (g["wx"], g["wh"], g["b"])
+        if cell == "lstm":
+            lstm_layer_bptt(inp, h0, h0, *w, h_seqs[l], g_hs[l], g_c,
+                            (l > 0, False, False, True, True, True),
+                            out=(dx, None, None, *gw), work=work[l])
+        else:
+            gru_layer_bptt(inp, h0, *w, h_seqs[l], g_hs[l],
+                           (l > 0, False, True, True, True),
+                           out=(dx, None, *gw), work=work[l])
+
+
 def encode(params, x, cfg: ForecasterConfig, cell_impl: str = "kernel"):
     """The recurrent layers: x (B, L, input_dim) -> the last step's h
     (B, H).  With client-stacked params (a leading M on every leaf) x is
@@ -110,19 +172,10 @@ def encode(params, x, cfg: ForecasterConfig, cell_impl: str = "kernel"):
     if cell_impl not in CELL_IMPLS:
         raise ValueError(
             f"cell_impl={cell_impl!r}; pick from {CELL_IMPLS}")
-    # time-major and contiguous: the layer's x_seq, (L, B, I) or (M, L, B, I)
-    h_seq = x.transpose(-3, -2).contiguous()
     h0 = torch.zeros(x.shape[:-3] + (x.shape[-3], cfg.hidden_dim),
                      dtype=x.dtype, device=x.device)
-    for p in params["layers"]:
-        w = (p["wx"], p["wh"], p["b"])
-        if cfg.cell == "lstm":
-            layer = lstm_layer if cell_impl == "kernel" else ref.lstm_layer_ref
-            h_seq, _ = layer(h_seq, h0, h0, *w)
-        else:
-            layer = gru_layer if cell_impl == "kernel" else ref.gru_layer_ref
-            h_seq = layer(h_seq, h0, *w)
-    return h_seq.select(-3, -1)
+    return last_step(layers_forward(params["layers"], time_major(x), h0,
+                                    cfg.cell, cell_impl))
 
 
 def head(params, h_last):
@@ -132,6 +185,21 @@ def head(params, h_last):
     b = params["head"]["b"]
     return torch.matmul(h_last, params["head"]["w"]) + \
         (b if b.dim() == 1 else b.unsqueeze(-2))
+
+
+def head_vjp(head_params, h_last, y, loss):
+    """The head and each client's loss on its own: ``(per-client loss
+    (M,), (the gradients of their sum w.r.t. h_last, the head's w and
+    b))``, none of them recorded by autograd.  The graphed local step's
+    head part (``core/client.py``), with ``loss`` as :func:`loss_fn`
+    takes it."""
+    with torch.enable_grad():
+        h_last = h_last.detach().requires_grad_()
+        hp = {k: v.detach().requires_grad_() for k, v in head_params.items()}
+        per_client = loss(head({"head": hp}, h_last), y, dim=(-2, -1))
+        grads = torch.autograd.grad(per_client.sum(),
+                                    (h_last, hp["w"], hp["b"]))
+    return per_client.detach(), grads
 
 
 def forecast(params, x, cfg: ForecasterConfig, cell_impl: str = "kernel"):

@@ -31,7 +31,11 @@ to the flush's start: ``wait_n``, ``wait_sum_ns``, ``wait_max_ns``) and its
 child ``engine.forward``.  Counters: ``engine.submit``; ``layer.bptt`` (the
 host time of a recurrent layer's backward launch, ``kernels/{lstm,gru}_cell
 .py::_launch_bptt``, a counter because autograd runs a CUDA backward on its
-own thread, where the span stack is not the program's).
+own thread, where the span stack is not the program's); ``fl.step_graph``
+(the host time of a local step that replayed its CUDA graphs,
+``core/client.py``'s graphed route) and ``fl.step_graph.capture`` (the
+host time of a step shape's first step: its eager run and the capture of
+its three graphs).
 """
 from __future__ import annotations
 
