@@ -76,10 +76,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth,
-# dense fp32 outside the tensor cores, dense bf16 on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and
+# dense fp32 outside the tensor cores, and a recurrent layer's bytes and
+# operations, are the benchmark's (portbench/benchlib/arith.py); dense bf16
+# on the tensor cores
+sys.path.insert(0, str(ROOT / "portbench"))
+from benchlib.arith import (FP32_FLOPS_PER_S, HBM_BYTES_PER_S,  # noqa: E402
+                            layer_bytes_flops)
 BF16_TENSOR_FLOPS_PER_S = 989e12
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # tests/test_kernels.py: cells
@@ -714,14 +717,6 @@ def _cudnn_layer(cell, wx, wh, b):
     return mod
 
 
-def _layer_bytes_flops(gates, T, B, I, H, itemsize=4):
-    """Each input read once, each output written once (h_seq; the LSTM's
-    c_T and c0 too), and the layer's multiply-adds."""
-    n = T * B * I + B * H + I * gates * H + H * gates * H + gates * H \
-        + T * B * H + (2 * B * H if gates == 4 else 0)
-    return itemsize * n, 2 * T * B * (I + H) * gates * H
-
-
 def time_kernels(seed):
     """At the serving shape (B=256, T=8, H=64, fp32): each layer kernel, its
     plain version and cuDNN's call for the same sequence (LSTM I=1; GRU I=1
@@ -777,7 +772,7 @@ def time_kernels(seed):
             require(_max_err(library(), want, 2e-5)[1],
                     f"cuDNN's nn.{cell.upper()} yardstick does not compute "
                     "the repo's layer")
-            n_bytes, flops = _layer_bytes_flops(G, T, B, I, H)
+            n_bytes, flops = layer_bytes_flops(G, T, B, I, H)
             t = _timed(kernel, plain, library, T=T, I=I, bytes=n_bytes,
                        flops=flops,
                        plan=_cuda.cell_plan(name, B, I, H, 4, sms)._asdict())
@@ -810,7 +805,7 @@ def time_kernels(seed):
     ref_h, ref_c = ref.lstm_cell_ref(x, h, c, wx, wh, b)
     require(_max_err(lib_h, ref_h, 2e-5)[1] and _max_err(lib_c, ref_c, 2e-5)[1],
             "torch.lstm_cell yardstick does not compute the repo's cell")
-    n_bytes, flops = _layer_bytes_flops(4, 1, B, I, H)
+    n_bytes, flops = layer_bytes_flops(4, 1, B, I, H)
     out["lstm_cell_step"] = _bound(_timed(
         lambda: lstm_cell(x, h, c, wx, wh, b),
         lambda: ref.lstm_cell_ref(x, h, c, wx, wh, b),
@@ -826,7 +821,7 @@ def time_kernels(seed):
     require(_max_err(torch.gru_cell(gx, h, g_ih, g_hh, g_b, g_bhh),
                      ref.gru_cell_ref(gx, h, gwx, gwh, gb), 2e-5)[1],
             "torch.gru_cell yardstick does not compute the repo's cell")
-    n_bytes, flops = _layer_bytes_flops(3, 1, B, I, H)
+    n_bytes, flops = layer_bytes_flops(3, 1, B, I, H)
     out["gru_cell_step"] = _bound(_timed(
         lambda: gru_cell(gx, h, gwx, gwh, gb),
         lambda: ref.gru_cell_ref(gx, h, gwx, gwh, gb),
@@ -940,7 +935,7 @@ def time_training_layer(seed):
             require(_max_err(library()[:, :B], want[0], 2e-5)[1],
                     f"cuDNN's nn.{cell.upper()} floor does not compute the "
                     "repo's layer on client 0's rows")
-            n_bytes, flops = _layer_bytes_flops(G, T, B, I, H)
+            n_bytes, flops = layer_bytes_flops(G, T, B, I, H)
             t = _timed(kernel, plain, library, iters=100, warmup=10, M=M,
                        T=T, B=B, I=I, H=H, bytes=M * n_bytes,
                        flops=M * flops,
@@ -1438,116 +1433,6 @@ def _train_routes(argv, fcfg):
     return kern, plain, counts, args, steps
 
 
-def _step_split(fcfg, seed, n_clients=100, days=365, reps=10):
-    """One warm local step of n_clients at B=64 (``client.sgd_step``), at
-    the phase's shapes: its unprofiled wall; the device time of each of its
-    parts (the forward kernel, the head, the loss, the plain backward, the
-    SGD update) from CUDA events between the parts, with the host held
-    ahead of the card by a spin so that no host gap falls between two
-    events (median of ``reps``); and torch.profiler over one step: the
-    device's activities, its busy share of the wall, and the costliest
-    kernels.  The profiler does not always list the layer kernel (a
-    ctypes launch), so the split comes from the events."""
-    import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import fedavg, losses
-    from repro_torch.core.client import sgd_step
-    from repro_torch.data import synthetic
-    from repro_torch.models import forecaster
-    from repro_torch.models.layers import (seeded_generator, tree_leaves,
-                                           tree_map)
-
-    series = synthetic.generate_buildings("CA", list(range(n_clients)),
-                                          days=days)
-    x, y, _ = fedavg._as_provider(series, fcfg).round_batch(
-        np.arange(n_clients))
-    rng = np.random.default_rng(seed)
-    idx = torch.from_numpy(rng.integers(0, x.shape[1], (n_clients, 64))
-                           ).cuda()
-    rows = torch.arange(n_clients, device="cuda")[:, None]
-    batch = {"x": torch.from_numpy(x).cuda()[rows, idx],
-             "y": torch.from_numpy(y).cuda()[rows, idx]}
-    params = forecaster.init_forecaster(seeded_generator(seed, 0), fcfg)
-    stacked = tree_map(lambda w: w.cuda().expand((n_clients,) + w.shape)
-                       .clone(), params)
-    loss, lr = losses.make_loss("ew_mse", 2.0), 0.05
-
-    def step():
-        return sgd_step(stacked, batch, lr, fcfg, loss)
-
-    for _ in range(5):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 20
-
-    # the same step in its parts (client.sgd_step's body), an event after
-    # each; the autograd engine runs the backward on the same stream
-    parts = ("forward_kernel", "head", "loss", "backward", "sgd_update")
-
-    def split_step(events):
-        leaves = [t.detach().requires_grad_()
-                  for t in tree_leaves(stacked)]
-        it = iter(leaves)
-        p = tree_map(lambda _: next(it), stacked)
-        events[0].record()
-        with torch.enable_grad():
-            h = forecaster.encode(p, batch["x"], fcfg)
-            events[1].record()
-            pred = forecaster.head(p, h)
-            events[2].record()
-            per_client = loss(pred, batch["y"], dim=(-2, -1))
-            events[3].record()
-            grads = torch.autograd.grad(per_client.sum(), leaves)
-            events[4].record()
-        with torch.no_grad():
-            [w - lr * g for w, g in zip(tree_leaves(stacked), grads)]
-        events[5].record()
-
-    a, b = torch.cuda.Event(enable_timing=True), \
-        torch.cuda.Event(enable_timing=True)
-    a.record()
-    torch.cuda._sleep(1_000_000)
-    b.record()
-    torch.cuda.synchronize()
-    cycles_per_ms = 1_000_000 / a.elapsed_time(b)
-    split = []
-    for _ in range(reps):
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-        torch.cuda._sleep(int(cycles_per_ms * 3 * wall_ms))
-        split_step(events)
-        torch.cuda.synchronize()
-        split.append([events[i].elapsed_time(events[i + 1])
-                      for i in range(5)])
-    by_part = dict(zip(parts, np.median(np.array(split), axis=0).tolist()))
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    acts = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    top = sorted(acts, key=lambda e: -e.self_device_time_total)[:12]
-    device_ms = sum(by_part.values())
-    return {
-        "clients": n_clients, "batch": 64, "wall_ms_per_step": wall_ms,
-        "device_ms_per_step": device_ms,
-        "device_busy_share": device_ms / wall_ms,
-        "device_ms_by_part": by_part, "split_median_of": reps,
-        "profiler": {
-            "device_activities": sum(e.count for e in acts),
-            "device_ms": sum(e.self_device_time_total for e in acts) / 1e3,
-            "layer_kernel_listed": any("_layer_kernel" in e.key
-                                       for e in acts),
-            "top": [{"name": e.key[:90], "calls": e.count,
-                     "ms": e.self_device_time_total / 1e3} for e in top]}}
-
-
 def train_slice(seed):
     """Federated training on the card (phase 6).  The main path:
     ``launch/train.py`` with its defaults, rounds cut to TRAIN_ROUNDS,
@@ -1556,9 +1441,8 @@ def train_slice(seed):
     LSTM launches must be rounds x local steps x n_layers in training and
     one per 8192-window batch in evaluation.  Then the kernel and plain
     routes for CHECK_ROUNDS rounds from the same init, held to each other at
-    the CPU tests' tolerances; the 2-layer GRU on 20 buildings x 60 days the
-    same way; and a profile of one warm local step.  Returns the training
-    launches of each cell."""
+    the CPU tests' tolerances; and the 2-layer GRU on 20 buildings x 60
+    days the same way.  Returns the training launches of each cell."""
     import math
 
     import numpy as np
@@ -1622,7 +1506,6 @@ def train_slice(seed):
         gkern[-1].params, synthetic.generate_buildings(
             gargs.state, held_ids, days=gargs.days), gcfg, device="cuda")
 
-    split = _step_split(ForecasterConfig(), seed)
     emit({"phase": "train", "cfg": dataclasses.asdict(ForecasterConfig()),
           "clients": margs.clients,
           "clients_per_round": summary["clients_per_round"],
@@ -1636,7 +1519,7 @@ def train_slice(seed):
           "launches": counts, "launches_train": summary["launches_train"],
           "launches_eval": summary["launches_eval"],
           "route_check_rounds": CHECK_ROUNDS,
-          "kernel_vs_plain": dev, "local_step_profile": split,
+          "kernel_vs_plain": dev,
           "gru2": {"clients": gargs.clients, "days": gargs.days,
                    "rounds": CHECK_ROUNDS,
                    "local_steps_per_round": gsteps, "launches": gcounts,

@@ -21,11 +21,13 @@ the term is exactly zero for finite weights, so FedAvg numerics are
 unchanged; a non-finite ``w - w_global`` turns the gradient into NaN there,
 as in the reference.
 
-**Two routes, one arithmetic.**  The eager route runs :func:`sgd_step`
-each step: autograd over the forecaster, about 50 launches a step, each
-dispatched by the host.  The graphed route (:class:`StepGraphs`) runs the
-same operations from static buffers, as three CUDA graphs with the
-hand-written kernels launched eagerly between them:
+**One step, run eagerly or replayed.**  The eager route runs
+:func:`sgd_step` each step, every launch dispatched by the host: the
+gradient of ``forecaster.loss_and_grads`` (on the kernel route the
+forward, the head's VJP and the BPTT; on the plain route autograd) and
+the SGD step.  The graphed route (:class:`StepGraphs`) runs the kernel
+route's calls, in the same order, from static buffers, as three CUDA
+graphs with the hand-written kernels launched eagerly between them:
 
 1. graph ``gather``: each client's minibatch from the round's x and y,
    the time-major x_seq;
@@ -43,7 +45,7 @@ hand-written kernels launched eagerly between them:
 
 The kernels stay outside the graphs so that every launch still passes
 through ``kernels/_cuda.py::launch`` (its counters, and whatever wraps it).
-The operations, their inputs' layouts and their order are the eager
+The calls, their inputs' layouts and their order are the eager kernel
 route's, so the two give the same bits.  A round loads x, y and the
 global params into the static set (device-to-device copies) and returns
 clones of the static params, which the next round's replays overwrite.
@@ -77,11 +79,6 @@ from repro_torch.models.layers import tree_leaves, tree_map
 GRAPH_SETS = 4
 
 
-def _rebuild(like, leaves):
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), like)
-
-
 def _prox_sgd(params, grads, anchor, lr, prox_mu):
     """The SGD step with the FedProx gradient term (none without an
     anchor); ``lr`` / ``prox_mu`` Python floats or 0-dim tensors."""
@@ -97,15 +94,11 @@ def sgd_step(params, batch, lr, cfg: ForecasterConfig, loss: Callable,
     {"x": (M, B, L, 1), "y": (M, B, horizon)}; ``anchor``/``prox_mu`` add
     the FedProx proximal gradient.  Returns (new stacked params, the step's
     loss of each client (M,))."""
-    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
-    with torch.enable_grad():
-        per_client = forecaster.loss_fn(_rebuild(params, leaves), batch, cfg,
-                                        loss, cell_impl, dim=(-2, -1))
-        with tracing.span("fl.backward"):
-            grads = torch.autograd.grad(per_client.sum(), leaves)
+    per_client, grads = forecaster.loss_and_grads(params, batch, cfg, loss,
+                                                  cell_impl)
     with torch.no_grad():
-        new = _prox_sgd(params, _rebuild(params, grads), anchor, lr, prox_mu)
-    return new, per_client.detach()
+        new = _prox_sgd(params, grads, anchor, lr, prox_mu)
+    return new, per_client
 
 
 def local_update(params, x, y, batch_idx, lr, cfg: ForecasterConfig,

@@ -77,7 +77,10 @@ class GRULayer(torch.autograd.Function):
     """The layer kernel as an autograd op: the forward launches it and
     keeps its inputs and its h_seq; the backward launches the BPTT kernel
     for every input that needs a gradient (x_seq too: a second layer feeds
-    on the first)."""
+    on the first).  The differentiable layer that mirrors the JAX
+    package's ``custom_vjp`` cell; federated training does not go through
+    it, but calls the layer and :func:`gru_layer_bptt` itself
+    (``models/forecaster.py::loss_and_grads``)."""
 
     @staticmethod
     def forward(ctx, x_seq, h0, wx, wh, b):

@@ -84,7 +84,11 @@ class LSTMLayer(torch.autograd.Function):
     """The layer kernel as an autograd op: the forward launches it and
     keeps its inputs and its h_seq; the backward launches the BPTT kernel,
     which recomputes each step's gates from them (the forward writes every
-    h but only the last c), for every input that needs a gradient."""
+    h but only the last c), for every input that needs a gradient.  The
+    differentiable layer that mirrors the JAX package's ``custom_vjp``
+    cell; federated training does not go through it, but calls the layer
+    and :func:`lstm_layer_bptt` itself
+    (``models/forecaster.py::loss_and_grads``)."""
 
     @staticmethod
     def forward(ctx, x_seq, h0, c0, wx, wh, b):

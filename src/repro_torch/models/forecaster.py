@@ -18,12 +18,13 @@ plain cells one time step at a time (``kernels/ref.py::lstm_layer_ref``,
 Federated training runs every selected client's forward at once: the
 params are client-stacked (a leading M on every leaf, one model per client)
 and x is (M, B, L, input_dim); each layer is still one launch, with the
-clients on the kernel's grid.  Both routes are differentiable: the kernel
-route's backward is one launch per layer of the BPTT kernel
-(``csrc/{lstm,gru}_bptt.cu``), the VJP of the plain layer.  The graphed
-local step (``core/client.py``) runs the same forward and backward into
-preallocated buffers, with autograd only over the head:
-:func:`layers_forward`, :func:`head_vjp`, :func:`layers_bptt`.
+clients on the kernel's grid.  A local step's gradient
+(:func:`loss_and_grads`) is decided here, by route: the kernel route runs
+:func:`layers_forward`, :func:`head_vjp` (autograd over the head alone)
+and :func:`layers_bptt`, one launch per layer of the BPTT kernel
+(``csrc/{lstm,gru}_bptt.cu``), the VJP of the plain layer; the graphed
+local step (``core/client.py``) replays the same calls into preallocated
+buffers.  The plain route takes autograd through the plain cells.
 """
 from __future__ import annotations
 
@@ -32,11 +33,13 @@ from typing import Dict
 import torch
 from torch import nn
 
+from repro_torch import tracing
 from repro_torch.configs.base import ForecasterConfig
 from repro_torch.kernels import ref
 from repro_torch.kernels.gru_cell import gru_layer, gru_layer_bptt
 from repro_torch.kernels.lstm_cell import lstm_layer, lstm_layer_bptt
-from repro_torch.models.layers import dense_init, tree_from_numpy
+from repro_torch.models.layers import (dense_init, tree_from_numpy,
+                                       tree_leaves, tree_map)
 
 # "kernel": one fused CUDA layer call per layer; "torch": the plain cells,
 # step by step (on the CPU both compute the plain cells)
@@ -117,15 +120,22 @@ def last_step(h_seq):
     return h_seq.select(-3, -1)
 
 
+def zero_state(x_seq, hidden_dim: int):
+    """The layers' zero h0 (and c0) for a time-major x_seq (..., L, B, I):
+    (..., B, hidden_dim)."""
+    return torch.zeros(x_seq.shape[:-3] + (x_seq.shape[-2], hidden_dim),
+                       dtype=x_seq.dtype, device=x_seq.device)
+
+
 def layers_forward(layers, x_seq, h0, cell: str, cell_impl: str = "kernel",
                    out=None):
     """The recurrent layers over a time-major x_seq from the zero state h0
     (every layer's h0, and c0 too): each layer's h_seq the next one's
-    input.  Returns the top layer's h_seq.  ``out``: each layer's
-    preallocated output, ``(h_seq, c_T)`` (LSTM) or h_seq (GRU), which the
-    kernel route writes where autograd records nothing (the graphed local
-    step, ``core/client.py``)."""
-    h_seq = x_seq
+    input.  Returns every layer's h_seq, the top layer's last.  ``out``:
+    each layer's preallocated output, ``(h_seq, c_T)`` (LSTM) or h_seq
+    (GRU), which the kernel route writes where autograd records nothing
+    (the graphed local step, ``core/client.py``)."""
+    h_seqs, h_seq = [], x_seq
     for l, p in enumerate(layers):
         w = (p["wx"], p["wh"], p["b"])
         kw = {} if out is None else {"out": out[l]}
@@ -135,20 +145,21 @@ def layers_forward(layers, x_seq, h0, cell: str, cell_impl: str = "kernel",
         else:
             layer = gru_layer if cell_impl == "kernel" else ref.gru_layer_ref
             h_seq = layer(h_seq, h0, *w, **kw)
-    return h_seq
+        h_seqs.append(h_seq)
+    return h_seqs
 
 
 def layers_bptt(layers, x_seq, h0, cell: str, h_seqs, g_hs, g_c, grads,
                 work):
     """The kernel route's backward through :func:`layers_forward`, into
-    preallocated buffers: what autograd chains through ``LSTMLayer`` /
-    ``GRULayer`` on the eager route, one BPTT launch a layer, top layer
-    first.  ``h_seqs``: each layer's h_seq; ``g_hs``: their cotangents,
-    the top layer's given, each lower one written as the dx of the layer
-    above; ``g_c``: the cotangent of each LSTM layer's unused c_T (zero;
-    None for the GRU); ``grads``: each layer's ``{"wx", "wh", "b"}``
-    gradients, written; ``work``: each layer's BPTT workspace.  No
-    gradient of x_seq or of the zero state."""
+    preallocated buffers: one BPTT call a layer (a launch on the card, the
+    plain version on the CPU), top layer first.  ``h_seqs``: each layer's
+    h_seq; ``g_hs``: their cotangents, the top layer's given, each lower
+    one written as the dx of the layer above; ``g_c``: the cotangent of
+    each LSTM layer's unused c_T (zero; None for the GRU); ``grads``: each
+    layer's ``{"wx", "wh", "b"}`` gradients, written; ``work``: each
+    layer's BPTT workspace, None for a new one.  No gradient of x_seq or
+    of the zero state."""
     for l in reversed(range(len(layers))):
         p, g = layers[l], grads[l]
         inp = x_seq if l == 0 else h_seqs[l - 1]
@@ -172,10 +183,10 @@ def encode(params, x, cfg: ForecasterConfig, cell_impl: str = "kernel"):
     if cell_impl not in CELL_IMPLS:
         raise ValueError(
             f"cell_impl={cell_impl!r}; pick from {CELL_IMPLS}")
-    h0 = torch.zeros(x.shape[:-3] + (x.shape[-3], cfg.hidden_dim),
-                     dtype=x.dtype, device=x.device)
-    return last_step(layers_forward(params["layers"], time_major(x), h0,
-                                    cfg.cell, cell_impl))
+    x_seq = time_major(x)
+    return last_step(layers_forward(params["layers"], x_seq,
+                                    zero_state(x_seq, cfg.hidden_dim),
+                                    cfg.cell, cell_impl)[-1])
 
 
 def head(params, h_last):
@@ -190,9 +201,9 @@ def head(params, h_last):
 def head_vjp(head_params, h_last, y, loss):
     """The head and each client's loss on its own: ``(per-client loss
     (M,), (the gradients of their sum w.r.t. h_last, the head's w and
-    b))``, none of them recorded by autograd.  The graphed local step's
-    head part (``core/client.py``), with ``loss`` as :func:`loss_fn`
-    takes it."""
+    b))``, none of them recorded by autograd.  The kernel route's head
+    part of a local step (:func:`loss_and_grads`), with ``loss`` as
+    :func:`loss_fn` takes it."""
     with torch.enable_grad():
         h_last = h_last.detach().requires_grad_()
         hp = {k: v.detach().requires_grad_() for k, v in head_params.items()}
@@ -215,6 +226,43 @@ def loss_fn(params, batch, cfg: ForecasterConfig, loss, cell_impl="kernel",
     loss per client, (M,)."""
     pred = forecast(params, batch["x"], cfg, cell_impl)
     return loss(pred, batch["y"], dim=dim)
+
+
+def loss_and_grads(params, batch, cfg: ForecasterConfig, loss,
+                   cell_impl: str = "kernel"):
+    """A local step's gradient: ``(each client's loss (M,), the gradient
+    tree of their sum)`` for client-stacked params and a batch
+    ``{"x": (M, B, L, input_dim), "y": (M, B, horizon)}``, none of them
+    recorded by autograd; the backward runs in the tracer's
+    ``fl.backward`` span.  The kernel route calls :func:`time_major`,
+    :func:`layers_forward`, :func:`head_vjp` and :func:`layers_bptt`, into
+    new tensors: the sequence the graphed local step replays from its
+    static buffers (``core/client.py::StepGraphs``).  The plain route takes
+    autograd through :func:`loss_fn`, the independent reference."""
+    if cell_impl != "kernel":
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            per_client = loss_fn(p, batch, cfg, loss, cell_impl,
+                                 dim=(-2, -1))
+            with tracing.span("fl.backward"):
+                grads = iter(torch.autograd.grad(per_client.sum(),
+                                                 tree_leaves(p)))
+        return per_client.detach(), tree_map(lambda _: next(grads), p)
+    layers = params["layers"]
+    with torch.no_grad():
+        x_seq = time_major(batch["x"])
+        h0 = zero_state(x_seq, cfg.hidden_dim)
+        h_seqs = layers_forward(layers, x_seq, h0, cfg.cell)
+        with tracing.span("fl.backward"):
+            per_client, (g_h, g_w, g_b) = head_vjp(
+                params["head"], last_step(h_seqs[-1]), batch["y"], loss)
+            g_hs = [torch.zeros_like(h) for h in h_seqs]
+            last_step(g_hs[-1]).copy_(g_h)
+            grads = tree_map(torch.empty_like, layers)
+            layers_bptt(layers, x_seq, h0, cfg.cell, h_seqs, g_hs,
+                        torch.zeros_like(h0) if cfg.cell == "lstm" else None,
+                        grads, [None] * len(layers))
+    return per_client, {"layers": grads, "head": {"w": g_w, "b": g_b}}
 
 
 class Forecaster(nn.Module):

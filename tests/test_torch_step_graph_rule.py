@@ -12,9 +12,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs.base import ForecasterConfig
 from repro_torch.core import client, losses
-from repro_torch.kernels import ref
+from repro_torch.kernels import gru_cell, lstm_cell
 from repro_torch.models import forecaster
-from repro_torch.models.layers import tree_leaves
+from repro_torch.models.layers import tree_leaves, tree_map
 
 CUDA = torch.device("cuda")
 MSE = losses.make_loss("mse")
@@ -148,42 +148,13 @@ def test_cache_is_a_bounded_lru():
 
 
 # ------------------------------------------------- the graphed step's arithmetic
-def _plain_kernels(monkeypatch, cell):
-    """The eager route's layer stood in by an autograd Function of the
-    plain layer and its BPTT (``kernels/ref.py``), as ``LSTMLayer`` /
-    ``GRULayer`` pair the kernels on the card; the static step's calls
-    (``out=``, ``*_layer_bptt``) take the same two on the CPU."""
-    lstm = cell == "lstm"
-    fwd = ref.lstm_layer_ref if lstm else ref.gru_layer_ref
-    bwd = ref.lstm_layer_bptt_ref if lstm else ref.gru_layer_bptt_ref
-    layer = getattr(forecaster, f"{cell}_layer")
-
-    class Layer(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, *args):
-            got = fwd(*args)
-            ctx.save_for_backward(*args, got[0] if lstm else got)
-            return got
-
-        @staticmethod
-        def backward(ctx, *g):
-            return bwd(*ctx.saved_tensors, *(t.contiguous() for t in g),
-                       ctx.needs_input_grad)
-
-    monkeypatch.setattr(forecaster, f"{cell}_layer",
-                        lambda *a, out=None: Layer.apply(*a) if out is None
-                        else layer(*a, out=out))
-
-
 @pytest.mark.parametrize("prox_mu", [0.0, 0.01])
 @pytest.mark.parametrize("cell,n_layers", [("lstm", 1), ("lstm", 2),
                                            ("gru", 1), ("gru", 2)])
-def test_static_step_bit_equal_to_the_eager_loop(monkeypatch, cell,
-                                                 n_layers, prox_mu):
+def test_static_step_bit_equal_to_the_eager_loop(cell, n_layers, prox_mu):
     """What a replay runs (``StepGraphs._eager_step``), from the static
-    buffers, with the kernels stood in on the CPU: two rounds of losses
-    and params bit-equal to the eager loop's."""
-    _plain_kernels(monkeypatch, cell)
+    buffers, on the CPU, where both call the same plain layer and BPTT:
+    two rounds of losses and params bit-equal to the eager loop's."""
     cfg = ForecasterConfig(cell=cell, n_layers=n_layers, hidden_dim=16)
     params = forecaster.init_forecaster(torch.Generator().manual_seed(2),
                                         cfg)
@@ -205,3 +176,68 @@ def test_static_step_bit_equal_to_the_eager_loop(monkeypatch, cell,
         params = {"layers": [{k: v.mean(0) for k, v in p.items()}
                              for p in want["layers"]],
                   "head": {k: v.mean(0) for k, v in want["head"].items()}}
+
+
+# ------------------------------------------- the kernel route's eager step
+@pytest.mark.parametrize("prox_mu", [0.0, 0.01])
+@pytest.mark.parametrize("cell,n_layers", [("lstm", 1), ("lstm", 2),
+                                           ("gru", 1), ("gru", 2)])
+def test_kernel_step_matches_the_plain_step(cell, n_layers, prox_mu):
+    """One eager step on the kernel route (forward, head VJP, BPTT) against
+    the plain route's (autograd through the plain cells), from the same
+    client-stacked params, batch and anchor: each client's loss and the
+    new params within 1e-6."""
+    cfg = ForecasterConfig(cell=cell, n_layers=n_layers, hidden_dim=16)
+    params = forecaster.init_forecaster(torch.Generator().manual_seed(4),
+                                        cfg)
+    x, y, bidx = _inputs(seed=21)
+    rows = torch.arange(x.shape[0])[:, None]
+    batch = {"x": x[rows, bidx[:, 0]], "y": y[rows, bidx[:, 0]]}
+    g = torch.Generator().manual_seed(6)
+    stacked = tree_map(lambda w: w + 0.01 * torch.randn(
+        (x.shape[0],) + w.shape, generator=g), params)
+    got = {impl: client.sgd_step(stacked, batch, 0.05, cfg, EW2, impl,
+                                 anchor=params, prox_mu=prox_mu)
+           for impl in ("kernel", "torch")}
+    (k_new, k_loss), (p_new, p_loss) = got["kernel"], got["torch"]
+    torch.testing.assert_close(k_loss, p_loss, rtol=1e-6, atol=1e-6)
+    for a, b in zip(tree_leaves(k_new), tree_leaves(p_new)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    assert not any(t.requires_grad for t in tree_leaves(k_new) + [k_loss])
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_kernel_route_training_reaches_no_layer_function(monkeypatch, cell):
+    """The local update on the kernel route calls the layer and its BPTT
+    itself: with the layers' autograd Functions made to raise, it still
+    runs, and matches the plain route.  On the CPU the wrappers never take
+    the Functions, so the layer calls are watched as well: none is one
+    that autograd records, the call a wrapper hands its Function on the
+    card."""
+    def refuse(*a, **kw):
+        raise AssertionError("training reached a layer's autograd Function")
+
+    def watched(layer):
+        def call(*args, **kw):
+            if torch.is_grad_enabled() and any(t.requires_grad
+                                               for t in args):
+                refuse()
+            return layer(*args, **kw)
+        return call
+
+    monkeypatch.setattr(lstm_cell.LSTMLayer, "apply", refuse)
+    monkeypatch.setattr(gru_cell.GRULayer, "apply", refuse)
+    for name in ("lstm_layer", "gru_layer"):
+        monkeypatch.setattr(forecaster, name,
+                            watched(getattr(forecaster, name)))
+    cfg = ForecasterConfig(cell=cell, n_layers=2, hidden_dim=8)
+    params = forecaster.init_forecaster(torch.Generator().manual_seed(5),
+                                        cfg)
+    x, y, bidx = _inputs(steps=3)
+    got, loss = client.local_update(params, x, y, bidx, 0.05, cfg, MSE,
+                                    "kernel", 0.01)
+    want, want_loss = client.local_update(params, x, y, bidx, 0.05, cfg,
+                                          MSE, "torch", 0.01)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=1e-6)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
